@@ -1,0 +1,14 @@
+"""Collective layer on one device: the torrent aggregate + the FL step.
+
+``torrent.py``  — ``torrent_fedavg``: chunked dissemination of per-pod
+updates (optionally int8-compressed per block), then masked FedAvg.
+
+``fl_step.py``  — ``make_fl_train_step``: per-pod local gradients ->
+torrent aggregate -> one AdamW update; ``ElasticFLStep``: the step
+rebuilt per active pod count (§III-E).
+"""
+from .fl_step import ElasticFLStep, make_fl_train_step
+from .torrent import take_pods, torrent_fedavg
+
+__all__ = ["torrent_fedavg", "take_pods", "make_fl_train_step",
+           "ElasticFLStep"]

@@ -1,0 +1,86 @@
+"""The port stands alone: no jax, no ``repro`` module, no quiet CPU.
+
+``src/repro_torch`` and ``chip_smoke.py`` must run on a GPU machine
+where the JAX package cannot be imported, and the port's entry points
+must refuse to fall back to the CPU when no GPU is present.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".")
+               for f in FORBIDDEN)
+
+
+def test_port_sources_import_no_jax_and_no_repro():
+    files = _port_files()
+    assert len(files) > 20
+    bad = [(str(f.relative_to(REPO)), m) for f in files
+           for m in _imported_modules(f) if _forbidden(m)]
+    assert bad == []
+
+
+def test_forbidden_matcher():
+    assert _forbidden("jax.numpy") and _forbidden("repro.kernels.ops")
+    assert _forbidden("jaxlib") and _forbidden("repro")
+    assert not _forbidden("repro_torch.kernels")
+    assert not _forbidden("jaxtyping")
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
+        "assert len(names) > 15, names\n"
+        "assert not bad, bad\n"
+        "print('ok', len(names))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ,
+                                   PYTHONPATH=str(REPO / "src")),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from repro_torch import resolve_device
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
