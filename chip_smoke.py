@@ -10,28 +10,46 @@ and imports nothing of the JAX package:
    and CUDA versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``build/torch_kernels/`` and prints how long that took;
-3. holds every kernel against its plain PyTorch version on the card:
-   first at small and odd shapes and edge cases (zero mass, a masked
-   NaN row, bf16 updates, ties, an all-zero row, non-finite rows), then
-   at the federated train step's own shapes for qwen3-1.7b at full
-   width with P = 2: fedavg over (2, 1,720,574,976) and quantize /
-   dequantize over (8, 430,143,744).  Codes, scales and dequantized
-   values must be equal; fedavg agrees to atol = rtol = 2e-5.  Each
-   kernel is timed there with CUDA events (median of 10 runs after a
-   warm-up) beside its bound (bytes it must move over the card's HBM
-   rate), its plain version and, where there is one, the one PyTorch
-   call that computes the same function (``wn @ updates`` for fedavg,
-   ``torch.mul(q, s, out=...)`` for dequantize; none for quantize).
-   These full-shape checks run after step 4, so their launches are not
-   counted as the main path's;
-4. sets the launch counters to 0 and runs the main path: the train
-   driver for 4 uncompressed steps at full width and depth (P = 2,
-   batch 8, seq 512), then 2 compressed steps of ``ElasticFLStep``; all
-   losses must be finite and each kernel must have launched;
-5. checks the step against a reference on a small input: the reduced
-   qwen3 config trained 2 compressed steps on the card agrees with the
-   same steps run on the CPU's plain versions;
-6. prints one ``{"kernels": [...]}`` line and, last,
+3. holds every kernel against its plain PyTorch version on the card at
+   small and odd shapes and edge cases: fedavg, quantize and dequantize
+   (zero mass, a masked NaN row, bf16 updates, ties, an all-zero row,
+   non-finite rows); flash_attention on the test suite's attention
+   cases plus head dims 256 and 80, GQA group 10, ragged tiles, a
+   rolling cache with negative key positions and rows with no live key
+   (which must be exactly 0), in f32 (atol = rtol = 3e-5) and bf16
+   (1e-2), and the gradient through ``attention(impl="cuda")``;
+   rglru_scan with and without h0, T = 1, f32 (2e-5) and bf16;
+4. the main paths, each with the launch counters set to 0 just before
+   it and read just after:
+   a. training: the train driver for 4 uncompressed steps of qwen3-1.7b
+      at full width and depth (P = 2, batch 8, seq 512), then 2
+      compressed steps of ``ElasticFLStep``; all losses finite, each
+      aggregation kernel launched;
+   b. serving: ``launch/serve.py`` for gemma2-2b and recurrentgemma-2b
+      at full width and depth, batch 8, an 8192-token prompt (twice
+      gemma2's window, four times recurrentgemma's) and 32 generated
+      tokens; tokens in range, flash_attention (and rglru_scan for
+      recurrentgemma) launched; prints prefill seconds, decode tokens/s
+      and peak memory;
+5. holds the served prefill against the same prefill through the plain
+   versions at full width: last-position logits within a relative L2
+   of 2e-2, the first greedy token equal in at least 7 of 8 rows; and
+   prints, beside it, how far a one-ulp bump of the first layer's
+   normed input moves the plain path's logits (the bf16 noise floor);
+6. each kernel at its main path's full shapes, timed with CUDA events
+   (median of 10 runs after a warm-up) beside its bound, its plain
+   version and, where there is one, the one PyTorch call that computes
+   the same function (``wn @ updates`` for fedavg, ``torch.mul`` for
+   dequantize, SDPA for attention without softcap; none for quantize,
+   softcapped attention or rglru).  The bound is the larger of the
+   bytes over the HBM rate and the operations over the card's rate for
+   their type (f32 for the aggregation kernels and rglru, the bf16
+   tensor cores for attention);
+7. checks the steps against a reference on a small input: the reduced
+   qwen3 config trained 2 compressed steps, and reduced gemma2-2b and
+   recurrentgemma-2b prefill plus 4 decode steps, on the card agree
+   with the same work on the CPU's plain versions;
+8. prints one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line is printed.  With
@@ -52,6 +70,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at 700 W
 F32_OPS_PER_S = 67e12           # f32 outside the tensor cores, same sheet
+BF16_OPS_PER_S = 989e12         # bf16 tensor cores, dense, same sheet
 FULL_D = 1_720_574_976          # qwen3-1.7b parameter count
 PODS = 2
 TORRENT_BLOCKS = 4
@@ -59,6 +78,37 @@ MAIN_ARGV = ["--arch", "qwen3-1.7b", "--full", "--pods", str(PODS),
              "--steps", "4", "--batch", "8", "--seq", "512"]
 FEDAVG_TOL = 2e-5
 BF16_TOL = 1e-2
+ATTN_TOL = 3e-5                 # f32 attention, as tests/test_kernels.py
+RGLRU_TOL = 2e-5                # f32 rglru, as tests/test_kernels.py
+SERVE_ARCHS = ("gemma2-2b", "recurrentgemma-2b")
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 8192, 32
+SERVE_REL_L2 = 2e-2             # kernel vs plain prefill logits, bf16
+SERVE_TOKENS_AGREE = 7          # of SERVE_BATCH first greedy tokens
+# b, hq, hkv, tq, tk, d, causal, window, softcap, q_offset, kv_offset:
+# tests/test_torch_kernels.py's ATTN_CASES, then head dims 256 and 80,
+# group 10, ragged tiles, a rolling decode cache with negative key
+# positions, three query rows (the kernel's few-rows path), and rows
+# (or a whole tile) with no live key
+ATTN_CASES = [
+    (2, 4, 2, 128, 128, 64, True, None, None, 0, 0),
+    (1, 8, 4, 256, 256, 128, True, 64, None, 0, 0),
+    (1, 2, 2, 100, 100, 32, True, None, 50.0, 0, 0),
+    (2, 4, 1, 1, 320, 64, True, None, None, 319, 0),
+    (1, 4, 4, 1, 64, 32, True, 64, None, 100, 37),
+    (1, 4, 4, 128, 256, 64, False, None, None, 0, 0),
+    (1, 2, 1, 96, 96, 16, True, 32, 30.0, 0, 0),
+    (2, 8, 4, 200, 200, 256, True, None, 50.0, 0, 0),
+    (1, 4, 4, 70, 90, 80, False, None, None, 0, 0),
+    (1, 10, 1, 130, 130, 256, True, 48, None, 0, 0),
+    (2, 4, 2, 77, 150, 64, True, 100, 50.0, 73, 0),
+    (1, 8, 4, 1, 64, 256, True, 64, 50.0, 10, -53),
+    (2, 4, 2, 3, 100, 128, True, None, 50.0, 97, 0),
+    (1, 2, 1, 8, 40, 32, True, None, None, 0, 5),
+    (1, 2, 2, 70, 64, 64, True, None, None, 0, 100),
+]
+DEAD_ROWS = {13: 5, 14: 70}     # ATTN_CASES index -> leading dead rows
+RGLRU_CASES = [(2, 128, 64), (1, 300, 100), (3, 64, 512), (1, 17, 9),
+               (4, 1, 2560)]
 
 
 class SmokeFailure(RuntimeError):
@@ -129,12 +179,14 @@ def time_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float = 0.0,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """Least time for the work: the larger of its bytes (each input read
-    once, each output written once) over the HBM rate and its f32
-    operations over the card's f32 rate; and which of the two it is."""
+    once, each output written once) over the HBM rate and its
+    operations over the card's rate for their type (f32 by default);
+    and which of the two it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -231,6 +283,71 @@ def check_small() -> None:
         check(torch.equal(q[r], qr[r]) and torch.equal(s[r], sr[r]),
               f"quantize finite row {r} next to non-finite rows differs")
     log(f"small-shape checks passed ({n_cases} shapes + edge cases)")
+
+
+def _attn_inputs(case, dtype, gen):
+    import torch
+    b, hq, hkv, tq, tk, d = case[:6]
+    dev = torch.device("cuda")
+    q = torch.randn((b, hq, tq, d), generator=gen, device=dev)
+    k = torch.randn((b, hkv, tk, d), generator=gen, device=dev)
+    v = torch.randn((b, hkv, tk, d), generator=gen, device=dev)
+    kw = dict(causal=case[6], window=case[7], softcap=case[8],
+              q_offset=case[9], kv_offset=case[10])
+    return q.to(dtype), k.to(dtype), v.to(dtype), kw
+
+
+def check_small_serving() -> None:
+    """flash_attention and rglru_scan vs their plain versions at small
+    and odd shapes, the gradient through attention(impl="cuda")."""
+    import torch
+
+    from repro_torch.kernels import attention, ops, ref, rglru
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    for i, case in enumerate(ATTN_CASES):
+        for dt, tol in ((torch.float32, ATTN_TOL), (torch.bfloat16,
+                                                    BF16_TOL)):
+            q, k, v, kw = _attn_inputs(case, dt, gen)
+            got = attention.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check(got.dtype == dt and got.shape == q.shape,
+                  f"flash_attention {case}: {got.dtype} {tuple(got.shape)}")
+            want = ops.attention(q, k, v, impl="torch", block_q=64, **kw)
+            _close_err(got, want, tol, tol, f"flash_attention {case} {dt}")
+            dead = DEAD_ROWS.get(i, 0)
+            check(bool((got[:, :, :dead] == 0).all()),
+                  f"flash_attention {case}: a row with no live key is "
+                  "not exactly 0")
+    # the gradient recomputes through the plain path
+    q, k, v, kw = _attn_inputs(ATTN_CASES[10], torch.float32, gen)
+    grads = []
+    for impl in ("cuda", "torch"):
+        req = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = ops.attention(*req, impl=impl, block_q=64, **kw)
+        grads.append(torch.autograd.grad((out * out).sum(), req))
+    for name, a, b in zip("qkv", *grads):
+        _close_err(a, b, ATTN_TOL, ATTN_TOL, f"attention d{name}")
+    for b, t, d in RGLRU_CASES:
+        x = torch.randn((b, t, d), generator=gen, device="cuda")
+        a = 0.5 + 0.499 * torch.rand((b, t, d), generator=gen, device="cuda")
+        g = torch.rand((b, t, d), generator=gen, device="cuda")
+        h0 = torch.randn((b, d), generator=gen, device="cuda")
+        for dt, tol in ((torch.float32, RGLRU_TOL), (torch.bfloat16,
+                                                     BF16_TOL)):
+            for h in (None, h0):
+                xs, as_, gs = x.to(dt), a.to(dt), g.to(dt)
+                y, ht = rglru.rglru_scan(xs, as_, gs, h)
+                torch.cuda.synchronize()
+                yr, hr = ref.rglru(xs, as_, gs, h)
+                what = f"rglru_scan ({b}, {t}, {d}) {dt} h0={h is not None}"
+                check(y.dtype == dt and ht.dtype == torch.float32,
+                      f"{what}: dtypes {y.dtype}, {ht.dtype}")
+                _close_err(y, yr, tol, tol, what)
+                _close_err(ht, hr, tol, tol, what + " h_T")
+    log(f"small serving-kernel checks passed ({len(ATTN_CASES)} attention "
+        f"shapes x 2 dtypes, the gradient, {len(RGLRU_CASES)} rglru shapes"
+        " x 2 dtypes x 2 h0)")
 
 
 def check_full_shapes(counts: dict) -> list[dict]:
@@ -422,6 +539,270 @@ def run_main_path() -> dict:
     return counts
 
 
+def run_serving_path() -> tuple[dict, dict]:
+    """The serving driver at full width for each serving arch, the
+    launch counters set to 0 before each run and read after it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+
+    total: dict = {}
+    out: dict = {}
+    for arch in SERVE_ARCHS:
+        cfg = serve.serving_config(arch, reduced=False)
+        stats: dict = {}
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        toks = serve.main(["--arch", arch, "--full", "--batch",
+                           str(SERVE_BATCH), "--prompt-len",
+                           str(SERVE_PROMPT), "--gen", str(SERVE_GEN)],
+                          stats=stats)
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(toks.shape == (SERVE_BATCH, SERVE_GEN),
+              f"{arch}: tokens of shape {toks.shape}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"{arch}: tokens outside [0, {cfg.vocab})")
+        check(bool(np.isfinite(stats["logits"].numpy()).all()),
+              f"{arch}: non-finite prefill logits")
+        check(counts.get("flash_attention", 0) > 0,
+              f"{arch}: flash_attention never launched: {counts}")
+        if "rglru" in cfg.pattern:
+            check(counts.get("rglru_scan", 0) > 0,
+                  f"{arch}: rglru_scan never launched: {counts}")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        kinds = list(cfg.pattern) * cfg.n_cycles + list(cfg.tail_kinds)
+        kv = 2 * 2 * SERVE_BATCH * cfg.n_kv * cfg.head_dim   # k, v bf16
+        mem = {"weights": stats["param_bytes"] / 1e9,
+               "caches": stats["cache_bytes"] / 1e9,
+               "global_kv": kv * (SERVE_PROMPT + SERVE_GEN)
+               * kinds.count("global") / 1e9,
+               "local_kv": kv * (cfg.window or 0) * kinds.count("local")
+               / 1e9,
+               "peak": peak}
+        out[arch] = {"stats": stats, "counts": counts, "mem": mem}
+        log(f"serve {arch} full width, batch {SERVE_BATCH}, prompt "
+            f"{SERVE_PROMPT}, gen {SERVE_GEN}: prefill "
+            f"{stats['prefill_s']:.3f} s, decode "
+            f"{stats['decode_tok_s']:.1f} tok/s ({stats['decode_s']:.3f} s);"
+            f" peak memory {peak:.2f} GB (weights {mem['weights']:.2f}, "
+            f"caches {mem['caches']:.2f}: global KV {mem['global_kv']:.2f},"
+            f" local KV {mem['local_kv']:.2f} GB); launches {counts}")
+    free_cuda()
+    log(f"launches on the serving path: {total}")
+    return total, out
+
+
+def check_serving_vs_plain(served: dict) -> None:
+    """The served prefill's last logits against the same prefill with
+    the plain impls, same parameters and prompt, at full width."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import prefill
+
+    for arch in SERVE_ARCHS:
+        cfg = serve.serving_config(arch, reduced=False).replace(
+            attn_impl="xla", rnn_impl="xla")
+        with torch.no_grad():
+            params = serve.make_params(cfg, "cuda")
+            prompts = serve.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                         "cuda")
+            want, caches = prefill(cfg, params, prompts,
+                                   max_len=SERVE_PROMPT + SERVE_GEN)
+            want = want.float().cpu()
+            del caches
+            # the noise floor of bf16 through the whole depth: the plain
+            # path again, its first norm's output scaled by 1 + 2^-8
+            # (one bf16 ulp)
+            first = params["cycles"]["slot0"]["ln1"]
+            first[0].fill_(2.0 ** -8)
+            bumped, caches = prefill(cfg, params, prompts,
+                                     max_len=SERVE_PROMPT + SERVE_GEN)
+            bumped = bumped.float().cpu()
+        del params, caches
+        free_cuda()
+        got = served[arch]["stats"]["logits"]
+        rel = float((got - want).norm() / want.norm())
+        floor = float((bumped - want).norm() / want.norm())
+        agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+        log(f"{arch} full-width prefill, kernels vs plain: relative L2 of "
+            f"the last logits {rel:.3e} (limit {SERVE_REL_L2}; a one-ulp "
+            f"bump of the first layer's normed input moves the plain path "
+            f"by {floor:.3e}); first greedy token equal in {agree} of "
+            f"{SERVE_BATCH} rows")
+        check(rel <= SERVE_REL_L2, f"{arch}: relative L2 {rel:.3e}")
+        check(agree >= SERVE_TOKENS_AGREE,
+              f"{arch}: first tokens agree in {agree} of {SERVE_BATCH}")
+
+
+def _live_pairs(tq, tk, causal, window, q_offset, kv_offset) -> int:
+    """(q, k) pairs the attention mask keeps, for these offsets."""
+    import torch
+    qp = q_offset + torch.arange(tq, dtype=torch.int64)
+    lo = torch.full_like(qp, max(0, -kv_offset))
+    if window is not None:
+        lo = torch.maximum(lo, qp - window + 1 - kv_offset)
+    hi = torch.full_like(qp, tk - 1)
+    if causal:
+        hi = torch.minimum(hi, qp - kv_offset)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def check_full_shapes_serving(counts: dict) -> list[dict]:
+    """flash_attention and rglru_scan at the serving path's shapes:
+    compare with the plain version, time, bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention, ref, rglru
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    bf = torch.bfloat16
+    b, t, cache = SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN
+    pos = SERVE_PROMPT + 8
+    # name, (b, hq, hkv, tq, tk, d, causal, window, softcap, q_off, kv_off)
+    shapes = [
+        ("gemma2 prefill global", (b, 8, 4, t, t, 256, True, None, 50.0,
+                                   0, 0)),
+        ("gemma2 prefill local", (b, 8, 4, t, t, 256, True, 4096, 50.0,
+                                  0, 0)),
+        ("gemma2 decode global", (b, 8, 4, 1, cache, 256, True, None, 50.0,
+                                  pos, 0)),
+        ("gemma2 decode local", (b, 8, 4, 1, 4096, 256, True, 4096, 50.0,
+                                 pos, pos - 4095)),
+        ("recurrentgemma prefill local", (b, 10, 1, t, t, 256, True, 2048,
+                                          None, 0, 0)),
+        ("gemma2 prefill global, softcap off", (b, 8, 4, t, t, 256, True,
+                                                None, None, 0, 0)),
+    ]
+    rows = []
+    for label, case in shapes:
+        q, k, v, kw = _attn_inputs(case, bf, gen)
+        got = attention.flash_attention(q, k, v, **kw)
+        want = ref.attention_qchunk(q, k, v, **kw)
+        err = _close_err(got, want, BF16_TOL, BF16_TOL,
+                         f"flash_attention {label}")
+        del got, want
+        ms = time_ms(lambda: attention.flash_attention(q, k, v, **kw))
+        plain = time_ms(lambda: ref.attention_qchunk(q, k, v, **kw),
+                        runs=3)
+        bq, hq, hkv, tq, tk, d = case[:6]
+        pairs = _live_pairs(tq, tk, kw["causal"], kw["window"],
+                            kw["q_offset"], kw["kv_offset"])
+        ops = 4.0 * bq * hq * d * pairs
+        live_k = pairs if tq == 1 else tk       # decode reads live keys
+        nbytes = 2.0 * (2 * bq * hq * tq * d + 2 * bq * hkv * live_k * d)
+        bound = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+        lib = None
+        if kw["softcap"] is None:
+            # the one PyTorch call for the same function: SDPA, with
+            # the window as a boolean mask where there is one
+            mask = None
+            if kw["window"] is not None:
+                qp = torch.arange(tq, device="cuda")[:, None]
+                kp = torch.arange(tk, device="cuda")[None, :]
+                mask = (kp <= qp) & (kp > qp - kw["window"])
+
+            def sdpa():
+                if mask is None:
+                    return F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True)
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+            _close_err(sdpa(), attention.flash_attention(q, k, v, **kw),
+                       BF16_TOL, BF16_TOL, f"SDPA {label}")
+            lib = time_ms(sdpa)
+        row = _row("flash_attention", "csrc/attention.cu",
+                   "src/repro/kernels/attention.py:104", counts, err, ms,
+                   plain, bound, lib)
+        row["shape"] = f"{label}: {list(case)} bf16"
+        rows.append(row)
+        log(f"flash_attention {label} {list(case[:6])}: {ms:.3f} ms "
+            f"({ops / ms / 1e9:.1f} TFLOP/s, bound {bound[0]:.3f} ms by "
+            f"{bound[1]}); plain {plain:.3f} ms; library "
+            f"{'none' if lib is None else f'{lib:.3f} ms'}; max err "
+            f"{err:.3e}")
+        del q, k, v
+        free_cuda()
+
+    for label, (bb, tt, d), with_h0 in (
+            ("recurrentgemma prefill", (b, t, 2560), False),
+            ("recurrentgemma decode", (b, 1, 2560), True)):
+        x = torch.randn((bb, tt, d), generator=gen, device="cuda").to(bf)
+        a = (0.9 + 0.099 * torch.rand((bb, tt, d), generator=gen,
+                                      device="cuda")).to(bf)
+        g = torch.rand((bb, tt, d), generator=gen, device="cuda").to(bf)
+        h0 = (torch.randn((bb, d), generator=gen, device="cuda")
+              if with_h0 else None)
+        y, ht = rglru.rglru_scan(x, a, g, h0)
+        yr, hr = ref.rglru(x, a, g, h0)
+        err = max(_close_err(y, yr, BF16_TOL, BF16_TOL, f"rglru {label}"),
+                  _close_err(ht, hr, RGLRU_TOL, RGLRU_TOL,
+                             f"rglru {label} h_T"))
+        ms = time_ms(lambda: rglru.rglru_scan(x, a, g, h0))
+        plain = time_ms(lambda: ref.rglru(x, a, g, h0), runs=3)
+        n = bb * tt * d
+        nbytes = 2.0 * 4 * n + 4.0 * bb * d * (2 if with_h0 else 1)
+        bound = bound_ms(nbytes, 6.0 * n)
+        row = _row("rglru_scan", "csrc/rglru.cu",
+                   "src/repro/kernels/rglru.py:60", counts, err, ms, plain,
+                   bound, None)
+        row["shape"] = (f"{label}: ({bb}, {tt}, {d}) bf16"
+                        + (", h0" if with_h0 else ""))
+        rows.append(row)
+        log(f"rglru_scan {label} ({bb}, {tt}, {d}): {ms:.3f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s, bound {bound[0]:.3f} ms by "
+            f"{bound[1]}); plain {plain:.3f} ms; no library call; max err "
+            f"{err:.3e}")
+        del x, a, g, y, yr
+        free_cuda()
+    return rows
+
+
+def check_small_serve_vs_cpu() -> None:
+    """Reduced serving configs, prefill + 4 decode steps: the card
+    (CUDA kernels) against the CPU (plain versions), same parameters."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.tree import tree_map
+
+    for arch in SERVE_ARCHS:
+        cfg = serve.serving_config(arch, reduced=True)
+        p_cpu = serve.make_params(cfg, "cpu")
+        prompts = np.random.default_rng(4).integers(0, cfg.vocab,
+                                                    size=(2, 40))
+        logits: dict = {}
+        toks: list = []          # the CPU's greedy tokens, fed to both
+        with torch.no_grad():
+            for dev in ("cpu", "cuda"):
+                params = tree_map(lambda x: x.to(dev, copy=True), p_cpu)
+                lg, caches = prefill(cfg, params,
+                                     torch.as_tensor(prompts, device=dev),
+                                     max_len=44)
+                steps = [lg.cpu()]
+                for i in range(4):
+                    if dev == "cpu":
+                        toks.append(torch.argmax(steps[-1], -1))
+                    lg, caches = decode_step(cfg, params, caches,
+                                             toks[i].to(dev), 40 + i)
+                    steps.append(lg.cpu())
+                logits[dev] = steps
+        err = 0.0
+        for c, g in zip(logits["cpu"], logits["cuda"]):
+            err = max(err, _close_err(g, c, 1e-5, 1e-4,
+                                      f"reduced {arch} card vs CPU"))
+        log(f"reduced {arch} prefill + 4 decode steps: card == CPU, max "
+            f"abs err {err:.3e} (rtol 1e-4, atol 1e-5)")
+
+
 def check_small_step_vs_cpu() -> None:
     """Reduced qwen3, 2 compressed steps: the card (CUDA kernels)
     against the CPU (plain versions) from the same parameters."""
@@ -476,9 +857,14 @@ def main() -> int:
             f"python {sys.version.split()[0]}")
         log(f"kernel build: {build():.1f} s")
         check_small()
+        check_small_serving()
         counts = run_main_path()
+        serve_counts, served = run_serving_path()
+        check_serving_vs_plain(served)
         rows = check_full_shapes(counts)
+        rows += check_full_shapes_serving(serve_counts)
         check_small_step_vs_cpu()
+        check_small_serve_vs_cpu()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}",
               file=sys.stderr, flush=True)

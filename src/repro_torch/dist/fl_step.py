@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.dist.torrent import (aggregate_blocks, alloc_blocks,
                                       masked_weights)
-from repro_torch.models import train_loss
+from repro_torch.models import decode_step, train_loss
 from repro_torch.optim import adamw_update
 from repro_torch.tree import flatten, unflatten
 
@@ -211,3 +211,16 @@ class ElasticFLStep:
     def __call__(self, params, opt, batch, weights, active):
         p = int(batch["inputs"].shape[0])
         return self.step_for(p)(params, opt, batch, weights, active)
+
+
+def make_serve_step(cfg):
+    """Returns serve(params, caches, tokens, pos) ->
+    (next_tokens, logits, caches): one greedy decode step.  The caches
+    are updated in place (``models.decode_step``)."""
+
+    def serve(params, caches, tokens, pos):
+        logits, caches = decode_step(cfg, params, caches, tokens, pos)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        return nxt, logits, caches
+
+    return serve

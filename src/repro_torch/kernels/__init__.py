@@ -7,11 +7,14 @@ plain versions):
                   (the paper's aggregation step, §II-B).
 * ``quantize``  — per-chunk int8 quantize / dequantize (the torrent
                   collective's wire compression).
+* ``attention`` — flash attention forward with causal / window /
+                  softcap / GQA and decode-cache offsets (serving).
+* ``rglru``     — the RG-LRU linear recurrence (recurrentgemma).
 
 ``LAUNCHES`` counts the launches of each kernel (see ``_build.py``).
 """
-from . import fedavg, ops, quantize, ref
+from . import attention, fedavg, ops, quantize, ref, rglru
 from ._build import LAUNCHES, reset_launches
 
-__all__ = ["fedavg", "ops", "quantize", "ref", "LAUNCHES",
-           "reset_launches"]
+__all__ = ["attention", "fedavg", "ops", "quantize", "ref", "rglru",
+           "LAUNCHES", "reset_launches"]

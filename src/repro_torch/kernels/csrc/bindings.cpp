@@ -1,10 +1,10 @@
 // PyTorch bindings for the launchers in kernels.h.
 //
 // The only source that includes torch/extension.h.  It is called only
-// by the wrappers in fedavg.py and quantize.py, which check device,
-// dtype, shape and contiguity and allocate every output and scratch
-// tensor with torch.empty; the typed data_ptr<T>() calls below still
-// refuse a tensor of another dtype.  Each entry point launches on
+// by the wrappers in fedavg.py, quantize.py, attention.py and rglru.py,
+// which check device, dtype, shape, contiguity and alignment and
+// allocate every output and scratch tensor with torch.empty; the typed
+// data_ptr<T>() calls below still refuse a tensor of another dtype.  Each entry point launches on
 // PyTorch's current stream of the tensors' device and checks the launch
 // right after it.
 #include <torch/extension.h>
@@ -56,6 +56,42 @@ void chunk_dequantize(const at::Tensor& q, const at::Tensor& scale,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void check_launch(cudaError_t err, const char* what) {
+  TORCH_CHECK(err == cudaSuccess, what, ": ", cudaGetErrorString(err));
+}
+
+void flash_attention(const at::Tensor& q, const at::Tensor& k,
+                     const at::Tensor& v, const at::Tensor& out,
+                     bool causal, int64_t window, double softcap,
+                     int64_t q_offset, int64_t kv_offset, double scale) {
+  TORCH_CHECK(repro_torch::flash_attention_head_dim_ok(q.size(3)),
+              "flash_attention: unsupported head dim ", q.size(3));
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch(repro_torch::launch_flash_attention(
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   q.size(0), q.size(1), k.size(1), q.size(2), k.size(2),
+                   q.size(3), causal ? 1 : 0, window,
+                   static_cast<float>(softcap), q_offset, kv_offset,
+                   static_cast<float>(scale), dtype_code(q),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "flash_attention");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void rglru_scan(const at::Tensor& x, const at::Tensor& a,
+                const at::Tensor& gx, const c10::optional<at::Tensor>& h0,
+                const at::Tensor& y, const at::Tensor& h_last) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const float* h0p = h0.has_value() ? h0->data_ptr<float>() : nullptr;
+  check_launch(repro_torch::launch_rglru_scan(
+                   x.data_ptr(), a.data_ptr(), gx.data_ptr(), h0p,
+                   y.data_ptr(), h_last.data_ptr<float>(), x.size(0),
+                   x.size(1), x.size(2), dtype_code(x),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "rglru_scan");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -67,4 +103,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Per-row int8 quantize (x, q, scale, partial)");
   m.def("chunk_dequantize", &chunk_dequantize,
         "Per-row int8 dequantize (q, scale, out)");
+  m.def("flash_attention", &flash_attention,
+        "Flash attention forward (q, k, v, out, causal, window, softcap, "
+        "q_offset, kv_offset, scale)");
+  m.def("rglru_scan", &rglru_scan,
+        "RG-LRU scan (x, a, gx, h0 or None, y, h_last)");
 }

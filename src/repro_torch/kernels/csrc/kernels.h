@@ -41,4 +41,27 @@ void launch_chunk_dequantize(const int8_t* q, const float* scale,
                              void* out, int64_t n, int64_t e, int dtype,
                              cudaStream_t stream);
 
+// Flash attention forward.  q (b, hq, tq, d), k and v (b, hkv, tk, d) and
+// out (b, hq, tq, d) are contiguous and share `dtype`; hq % hkv == 0 and
+// d is one of flash_attention_head_dim_ok's.  window < 0 means none and
+// softcap <= 0 means none.  Returns the error of the attribute call or
+// of the launch (cudaGetLastError), which the caller must check.
+bool flash_attention_head_dim_ok(int64_t d);
+cudaError_t launch_flash_attention(const void* q, const void* k,
+                                   const void* v, void* out, int64_t b,
+                                   int64_t hq, int64_t hkv, int64_t tq,
+                                   int64_t tk, int64_t d, int causal,
+                                   int64_t window, float softcap,
+                                   int64_t q_offset, int64_t kv_offset,
+                                   float scale, int dtype,
+                                   cudaStream_t stream);
+
+// RG-LRU scan over x, a, gx (b, t, d) of `dtype`: y (b, t, d) of `dtype`
+// and h_last (b, d) f32, from h0 (b, d) f32 or zeros when h0 is null.
+// Returns the launch's error (cudaGetLastError).
+cudaError_t launch_rglru_scan(const void* x, const void* a, const void* gx,
+                              const float* h0, void* y, float* h_last,
+                              int64_t b, int64_t t, int64_t d, int dtype,
+                              cudaStream_t stream);
+
 }  // namespace repro_torch

@@ -7,67 +7,50 @@ The ``impl=`` names follow ``repro/kernels/ops.py``:
                       plain version for tensors on the CPU and launches
                       the kernel for CUDA tensors.
 * ``impl="torch"``  — plain PyTorch, blocked where the JAX ``"xla"``
-                      path is blocked (attention is chunked over q).
-* ``impl="ref"``    — the O(T^2) oracles in ``ref.py``.
+                      path is blocked (attention is chunked over q;
+                      rglru is a log-depth scan), and differentiable.
+* ``impl="ref"``    — the oracles in ``ref.py`` (O(T^2) attention,
+                      the sequential rglru loop).
 
-Attention, RG-LRU and mLSTM kernels belong to later slices of the port
-(ROADMAP.md, kernels #4 to #6); asking for them raises
-``NotImplementedError``.
+The mLSTM kernel belongs to a later slice of the port (ROADMAP.md,
+kernel #6); asking for it raises ``NotImplementedError``.  JAX's
+two-block sliding-window path (``_xla_attention_swa``) is not ported:
+``impl="torch"`` computes the same function with the q-chunked path.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
+from .attention import flash_attention as _flash_cuda
 from .fedavg import fedavg_reduce as _fedavg_cuda
 from .quantize import chunk_dequantize as _dq_cuda
 from .quantize import chunk_quantize as _q_cuda
-
-NEG_INF = -1e30
+from .rglru import rglru_scan as _rglru_cuda
 
 
 # ----------------------------------------------------------------------
-# Attention: chunked-over-q plain path
+# Attention
 # ----------------------------------------------------------------------
 
-def _torch_attention_qchunk(q, k, v, *, causal, window, softcap, q_offset,
-                            kv_offset, scale, block_q):
-    """Port of ``_xla_attention_qchunk``: peak memory O(block_q * Tk)
-    per head, plain einsum and softmax in f32, GQA without repeating
-    K/V (query head h reads KV head h // group)."""
-    b, hq, tq, d = q.shape
-    _, hkv, tk, _ = k.shape
-    group = hq // hkv
-    sc = (d ** -0.5) if scale is None else scale
-    block_q = max(1, min(block_q, tq))
-    pad_q = (-tq) % block_q
-    if pad_q:
-        q = torch.nn.functional.pad(q, (0, 0, 0, pad_q))
-    nq = q.shape[2] // block_q
-    kf = k.float()
-    vf = v.float()
-    k_pos = kv_offset + torch.arange(tk, device=q.device)[None, :]
-    outs = []
-    for qi in range(nq):
-        qf = q[:, :, qi * block_q:(qi + 1) * block_q].float()
-        qg = qf.reshape(b, hkv, group, block_q, d)
-        s = torch.einsum("bkgqd,bktd->bkgqt", qg, kf) * sc
-        if softcap is not None:
-            s = softcap * torch.tanh(s / softcap)
-        q_pos = (q_offset + qi * block_q
-                 + torch.arange(block_q, device=q.device))[:, None]
-        mask = (k_pos >= 0).expand(block_q, tk)
-        if causal:
-            mask = mask & (k_pos <= q_pos)
-        if window is not None:
-            mask = mask & (k_pos > q_pos - window)
-        s = torch.where(mask, s, NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        p = torch.where(mask.any(-1)[:, None], p, 0.0)
-        o = torch.einsum("bkgqt,bktd->bkgqd", p, vf)
-        outs.append(o.reshape(b, hq, block_q, d))
-    out = outs[0] if nq == 1 else torch.cat(outs, dim=2)
-    return out[:, :, :tq].to(q.dtype)
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through the plain
+    chunked path, as ``_pallas_attention``'s ``custom_vjp`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = kw
+        return _flash_cuda(q, k, v, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            req = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = ref.attention_qchunk(*req, **ctx.kw)
+            grads = torch.autograd.grad(out, req, g)
+        return (*grads, None)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -76,29 +59,73 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               kv_offset: int = 0, scale: float | None = None,
               impl: str = "torch", block_q: int = 512,
               block_k: int = 512) -> torch.Tensor:
-    """Dispatching multi-head attention; q (B,Hq,Tq,D), k/v (B,Hkv,Tk,D)."""
+    """Dispatching multi-head attention; q (B,Hq,Tq,D), k/v (B,Hkv,Tk,D).
+
+    ``block_k`` is kept for the JAX signature; the kernel's KV tile is
+    fixed (``csrc/attention.cu``) and the plain path does not tile K.
+    """
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset, kv_offset=kv_offset, scale=scale,
+              block_q=block_q)
     if impl == "cuda":
-        raise NotImplementedError(
-            "attention(impl='cuda') needs the Hopper flash_attention "
-            "kernel, which the serving slice ports (ROADMAP.md, "
-            "kernel #4); use impl='torch'")
+        return _FlashAttention.apply(q, k, v, kw)
     if impl == "torch":
-        return _torch_attention_qchunk(q, k, v, causal=causal,
-                                       window=window, softcap=softcap,
-                                       q_offset=q_offset,
-                                       kv_offset=kv_offset, scale=scale,
-                                       block_q=block_q)
+        return ref.attention_qchunk(q, k, v, **kw)
     if impl == "ref":
-        return ref.mha(q, k, v, causal=causal, window=window,
-                       softcap=softcap, q_offset=q_offset,
-                       kv_offset=kv_offset, scale=scale)
+        kw.pop("block_q")
+        return ref.mha(q, k, v, **kw)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
-def rglru(*args, **kwargs):
-    raise NotImplementedError(
-        "rglru is ported with the rglru_scan kernel and the recurrent "
-        "layer kinds (ROADMAP.md, kernel #5)")
+# ----------------------------------------------------------------------
+# RG-LRU
+# ----------------------------------------------------------------------
+
+def _torch_rglru(x, a, gate_x, h0):
+    """Port of ``_xla_rglru``: an inclusive scan over T of the affine
+    maps h -> a h + b in log2(T) doubling steps (Hillis-Steele; JAX's
+    ``associative_scan`` combines in another order), out of place, so
+    autograd differentiates it.  f32 throughout."""
+    xf, af, gx = x.float(), a.float(), gate_x.float()
+    bv = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * (gx * xf)
+    if h0 is not None:
+        # Fold h0 into the first step: h_1 = a_1 h_0 + i_1.
+        first = bv[:, :1] + af[:, :1] * h0.float()[:, None]
+        bv = torch.cat([first, bv[:, 1:]], dim=1)
+    av = af
+    t = x.shape[1]
+    shift = 1
+    while shift < t:
+        a_prev = torch.nn.functional.pad(av[:, :-shift], (0, 0, shift, 0),
+                                         value=1.0)
+        b_prev = torch.nn.functional.pad(bv[:, :-shift], (0, 0, shift, 0))
+        bv = b_prev * av + bv
+        av = a_prev * av
+        shift *= 2
+    return bv.to(x.dtype), bv[:, -1]
+
+
+def rglru(x: torch.Tensor, a: torch.Tensor, gate_x: torch.Tensor,
+          h0: torch.Tensor | None = None, *, impl: str = "torch"):
+    """Gated diagonal linear recurrence; returns (y (B,T,D), h_T (B,D)).
+
+    ``impl="cuda"`` is the ``rglru_scan`` kernel (the plain loop for CPU
+    tensors).  Like the Pallas kernel it has no gradient: it raises when
+    an input requires one; train with ``impl="torch"``.
+    """
+    if impl == "cuda":
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (x, a, gate_x, h0)):
+            raise RuntimeError(
+                "rglru(impl='cuda') has no gradient, as the Pallas "
+                "rglru_scan has none; use impl='torch' to train")
+        return _rglru_cuda(x, a, gate_x, h0)
+    if impl == "torch":
+        return _torch_rglru(x, a, gate_x, h0)
+    if impl == "ref":
+        return ref.rglru(x, a, gate_x, h0)
+    raise ValueError(f"unknown rglru impl {impl!r}")
 
 
 def mlstm(*args, **kwargs):

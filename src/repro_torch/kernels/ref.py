@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the kernels: the oracles and CPU paths.
 
 Each function here computes what its counterpart in
-``repro/kernels/ref.py`` computes, in straightforward tensor code.  The
-CUDA wrappers (``fedavg.py``, ``quantize.py``) use them for tensors
-that lie on the CPU, the tests compare them with the JAX oracles, and
-``chip_smoke.py`` holds each CUDA kernel against them on the card.
+``repro/kernels/ref.py`` computes, in straightforward tensor code, and
+``attention_qchunk`` ports ``repro/kernels/ops.py::_xla_attention_qchunk``.
+The CUDA wrappers (``fedavg.py``, ``quantize.py``, ``attention.py``,
+``rglru.py``) use them for tensors that lie on the CPU, the tests
+compare them with the JAX oracles, and ``chip_smoke.py`` holds each
+CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
@@ -60,6 +62,76 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # Fully-masked rows (possible with windows) -> zeros, not NaN.
     p = torch.where(mask.any(-1)[None, None, :, None], p, 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def attention_qchunk(q, k, v, *, causal=True, window=None, softcap=None,
+                     q_offset=0, kv_offset=0, scale=None, block_q=512):
+    """Port of ``_xla_attention_qchunk``: peak memory O(block_q * Tk)
+    per head, plain einsum and softmax in f32, GQA without repeating
+    K/V (query head h reads KV head h // group).  The plain version of
+    the ``flash_attention`` kernel, and ``ops.attention(impl="torch")``.
+    """
+    b, hq, tq, d = q.shape
+    _, hkv, tk, _ = k.shape
+    group = hq // hkv
+    sc = (d ** -0.5) if scale is None else scale
+    block_q = max(1, min(block_q, tq))
+    pad_q = (-tq) % block_q
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, pad_q))
+    nq = q.shape[2] // block_q
+    kf = k.float()
+    vf = v.float()
+    k_pos = kv_offset + torch.arange(tk, device=q.device)[None, :]
+    outs = []
+    for qi in range(nq):
+        qf = q[:, :, qi * block_q:(qi + 1) * block_q].float()
+        qg = qf.reshape(b, hkv, group, block_q, d)
+        s = torch.einsum("bkgqd,bktd->bkgqt", qg, kf) * sc
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        q_pos = (q_offset + qi * block_q
+                 + torch.arange(block_q, device=q.device))[:, None]
+        mask = (k_pos >= 0).expand(block_q, tk)
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if window is not None:
+            mask = mask & (k_pos > q_pos - window)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        p = torch.where(mask.any(-1)[:, None], p, 0.0)
+        o = torch.einsum("bkgqt,bktd->bkgqd", p, vf)
+        outs.append(o.reshape(b, hq, block_q, d))
+    out = outs[0] if nq == 1 else torch.cat(outs, dim=2)
+    return out[:, :, :tq].to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# RG-LRU oracle (diagonal gated linear recurrence, De et al. 2024)
+# ----------------------------------------------------------------------
+
+def rglru(x: torch.Tensor, a: torch.Tensor, gate_x: torch.Tensor,
+          h0: torch.Tensor | None = None
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + sqrt(max(1 - a_t^2, 0)) * (gx_t * x_t).
+
+    x, a, gate_x: (B, T, D), f32 arithmetic.  Returns (y (B, T, D) in
+    ``x.dtype``, h_T (B, D) f32), from ``h0`` (zeros when absent): a
+    sequential loop over T, the plain version of the ``rglru_scan``
+    kernel.
+    """
+    xf, af, gx = x.float(), a.float(), gate_x.float()
+    inp = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * (gx * xf)
+    h = (torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32,
+                     device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(x.shape[1]):
+        h = af[:, t] * h + inp[:, t]
+        ys.append(h)
+    y = (torch.stack(ys, dim=1) if ys
+         else torch.zeros_like(xf))
+    return y.to(x.dtype), h
 
 
 # ----------------------------------------------------------------------

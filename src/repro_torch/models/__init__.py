@@ -1,10 +1,12 @@
-"""Model zoo port: the dense decoder / encoder stack of ``repro.models``.
+"""Model zoo port: ``repro.models`` for the ported layer kinds.
 
-``init_params`` / ``forward`` / ``train_loss`` for every configuration
-whose layers are all ``"global"`` (see ``layers.py``).
+``init_params`` / ``forward`` / ``train_loss`` / ``prefill`` /
+``decode_step`` for every configuration whose layers are ``"global"``,
+``"local"`` or ``"rglru"`` (see ``layers.py``).
 """
 from .config import ArchConfig
-from .model import forward, init_params, param_count, train_loss
+from .model import (decode_step, forward, init_decode_cache, init_params,
+                    param_count, prefill, train_loss)
 
 __all__ = ["ArchConfig", "init_params", "forward", "train_loss",
-           "param_count"]
+           "param_count", "init_decode_cache", "prefill", "decode_step"]

@@ -1,4 +1,5 @@
-"""Shared model components: norms, RoPE, embeddings, chunked CE loss.
+"""Shared model components: norms, RoPE, embeddings, chunked CE loss,
+the depthwise causal conv of the recurrent block.
 
 Port of ``repro/models/common.py``.  The numerics follow the JAX code:
 norms and RoPE in f32 and cast back, the embedding scale rounded to the
@@ -103,3 +104,22 @@ def dense_init(gen: torch.Generator, shape, dtype, in_axis: int = 0,
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=device)
     return (w * std).to(dtype)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: torch.Tensor | None = None):
+    """Depthwise causal conv.  x: (B, T, D); w: (W, D).
+
+    Returns (y (B, T, D), new_state (B, W-1, D)): the state carries the
+    last W-1 inputs for decode continuation.  The taps are summed in
+    ``x.dtype`` in the JAX code's order.
+    """
+    width = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], width - 1, x.shape[2]),
+                            dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    t = x.shape[1]
+    y = sum(xp[:, i:i + t] * w[i] for i in range(width))
+    new_state = xp[:, xp.shape[1] - (width - 1):]
+    return y.to(x.dtype), new_state

@@ -1,4 +1,4 @@
-"""Unified LM: init / forward / train loss.
+"""Unified LM: init / forward / train loss / prefill / decode.
 
 Port of ``repro/models/model.py`` with the same parameter tree, so
 parameters carry across the two packages one to one:
@@ -14,6 +14,13 @@ so autograd gathers its gradient with one ``stack`` rather than one
 full-size scatter per layer.  ``cfg.remat`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant): activations are kept at
 layer boundaries only and recomputed in the backward pass.
+
+Decode caches mirror the parameter tree (``{"cycles": {"slot<i>":
+stacked}, "tail": [...]}``, JAX's layout), so ``interop`` carries them
+too.  They are updated in place: ``prefill`` allocates every cache at
+its final size (global KV caches at ``max_len`` directly, where the JAX
+code pads a length-T cache with ``_grow_caches``) and fills it, and
+``decode_step`` writes into the caches it is given and returns them.
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ from repro_torch.tree import leaves
 from .common import (chunked_ce_loss, embed_tokens, rms_norm, torch_dtype,
                      unembed_logits)
 from .config import ArchConfig
-from .layers import apply_layer, init_layer
+from .layers import apply_layer, init_cache, init_layer
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
@@ -71,13 +78,15 @@ def _embed_inputs(cfg: ArchConfig, p: dict, inputs) -> torch.Tensor:
     return inputs.to(torch_dtype(cfg.dtype)) @ p["adapter_in"]
 
 
-def _run_layers(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Cycles then tail, in train mode."""
-    remat = cfg.remat and torch.is_grad_enabled()
+def _run_layers(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                mode: str = "train", caches: dict | None = None, pos=None):
+    """Cycles then tail.  Returns (x, caches): ``caches`` is None in
+    train mode, else the tree ``caches`` given, updated in place."""
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
 
-    def run(kind, lp, h):
+    def run(kind, lp, h, cache):
         def fn(h_in):
-            return apply_layer(cfg, kind, lp, h_in, "train")[0]
+            return apply_layer(cfg, kind, lp, h_in, mode, cache, pos)[0]
         if remat:
             return checkpoint(fn, h, use_reentrant=False)
         return fn(h)
@@ -88,10 +97,15 @@ def _run_layers(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     for c in range(cfg.n_cycles):
         for i, kind in enumerate(cfg.pattern):
             lp = {name: ws[c] for name, ws in slots[i].items()}
-            x = run(kind, lp, x)
+            cache = None
+            if caches is not None:
+                cache = {name: t[c] for name, t in
+                         caches["cycles"][f"slot{i}"].items()}
+            x = run(kind, lp, x, cache)
     for j, kind in enumerate(cfg.tail_kinds):
-        x = run(kind, p["tail"][j], x)
-    return x
+        cache = None if caches is None else caches["tail"][j]
+        x = run(kind, p["tail"][j], x, cache)
+    return x, caches
 
 
 def _head_matrix(cfg: ArchConfig, p: dict) -> torch.Tensor:
@@ -103,7 +117,7 @@ def _head_matrix(cfg: ArchConfig, p: dict) -> torch.Tensor:
 def forward(cfg: ArchConfig, p: dict, inputs) -> torch.Tensor:
     """Full-sequence f32 logits (small-vocab / test use; see train_loss)."""
     x = _embed_inputs(cfg, p, inputs)
-    x = _run_layers(cfg, p, x)
+    x, _ = _run_layers(cfg, p, x)
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     return unembed_logits(x, _head_matrix(cfg, p), cfg.final_softcap)
 
@@ -116,13 +130,62 @@ def train_loss(cfg: ArchConfig, p: dict, inputs, labels, mask=None,
     ``cfg.has_embedding`` is False.  labels: (B, T) int.
     """
     x = _embed_inputs(cfg, p, inputs)
-    x = _run_layers(cfg, p, x)
+    x, _ = _run_layers(cfg, p, x)
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
     return chunked_ce_loss(x, _head_matrix(cfg, p), labels, mask,
                            softcap=cfg.final_softcap, chunk=ce_chunk)
+
+
+def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
+                      device=None) -> dict:
+    """Zeroed decode caches, stacked per slot (leading dim n_cycles)."""
+    nc = cfg.n_cycles
+    cycles = {}
+    for i, kind in enumerate(cfg.pattern):
+        one = init_cache(cfg, kind, batch, max_len, device=device)
+        cycles[f"slot{i}"] = {
+            name: torch.zeros((nc,) + tuple(t.shape), dtype=t.dtype,
+                              device=t.device)
+            for name, t in one.items()}
+    tail = [init_cache(cfg, kind, batch, max_len, device=device)
+            for kind in cfg.tail_kinds]
+    return {"cycles": cycles, "tail": tail}
+
+
+def prefill(cfg: ArchConfig, p: dict, inputs, max_len: int):
+    """Run the prompt, return (logits_last (B, V) f32, caches).
+
+    Global KV caches hold max(max_len, T) entries, the first T of them
+    filled; local caches the last ``window`` keys; recurrent caches the
+    (h, conv) state.
+    """
+    assert cfg.causal, "prefill/decode only for causal LMs"
+    b, t = inputs.shape[:2]
+    caches = init_decode_cache(cfg, b, max(max_len, t),
+                               device=inputs.device)
+    x = _embed_inputs(cfg, p, inputs)
+    x, caches = _run_layers(cfg, p, x, "prefill", caches)
+    x = rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
+    logits = unembed_logits(x[:, 0], _head_matrix(cfg, p),
+                            cfg.final_softcap)
+    return logits, caches
+
+
+def decode_step(cfg: ArchConfig, p: dict, caches: dict, tokens, pos: int):
+    """One decode step.  tokens: (B,) int; pos: absolute position (int).
+
+    Returns (logits (B, V) f32, caches), the caches updated in place.
+    """
+    assert cfg.causal
+    x = _embed_inputs(cfg, p, tokens[:, None])
+    x, caches = _run_layers(cfg, p, x, "decode", caches, int(pos))
+    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    logits = unembed_logits(x[:, 0], _head_matrix(cfg, p),
+                            cfg.final_softcap)
+    return logits, caches
 
 
 def param_count(params) -> int:

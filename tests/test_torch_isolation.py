@@ -78,9 +78,11 @@ def test_entry_points_raise_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
     from repro_torch import resolve_device
-    from repro_torch.launch import train
+    from repro_torch.launch import serve, train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--gen", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")

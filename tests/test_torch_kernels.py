@@ -4,15 +4,17 @@ Inputs come from a numpy seed and go through both packages: the port's
 plain versions (``repro_torch.kernels.ref`` / ``ops``) and its CUDA
 wrappers on CPU tensors (which run the plain versions) are held
 against ``repro.kernels.ref`` and the Pallas kernels in interpret
-mode.  Tolerances follow tests/test_kernels.py: fedavg
-``atol=rtol=2e-5``, attention ``3e-5``, int8 codes and scales exact,
-dequantized values exact.  Tests marked ``cuda`` build and launch the
+mode (rglru against ``ref.rglru`` and the XLA scan: its interpret
+kernel does not run under jax 0.9.0).  Tolerances follow
+tests/test_kernels.py: fedavg ``atol=rtol=2e-5``, attention ``3e-5``,
+rglru ``2e-5``, int8 codes and scales exact, dequantized values exact.  Tests marked ``cuda`` build and launch the
 CUDA kernels and skip where there is no GPU.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -268,22 +270,128 @@ def test_attention_torch_is_differentiable():
     assert q.grad.shape == q.shape and bool(torch.isfinite(q.grad).all())
 
 
-@pytest.mark.parametrize("call", ["attention_cuda", "rglru", "mlstm",
-                                  "bad_impl"])
+@pytest.mark.parametrize("call", ["mlstm", "bad_impl"])
 def test_unported_impls_raise(call):
     x = torch.zeros(1, 1, 4, 8)
-    if call == "attention_cuda":
-        with pytest.raises(NotImplementedError, match="kernel #4"):
-            ops.attention(x, x, x, impl="cuda")
-    elif call == "rglru":
-        with pytest.raises(NotImplementedError, match="kernel #5"):
-            ops.rglru(x, x, x)
-    elif call == "mlstm":
+    if call == "mlstm":
         with pytest.raises(NotImplementedError, match="kernel #6"):
             ops.mlstm(x, x, x, x, x)
     else:
         with pytest.raises(ValueError):
             ops.fedavg(x[0, 0], torch.ones(4), torch.ones(4), impl="pallas")
+
+
+@pytest.mark.parametrize("call", ["attention_cuda", "rglru"])
+def test_cpu_tensors_take_the_plain_kernel_versions(call):
+    """The kernel wrappers run their plain versions for CPU tensors and
+    count no launch."""
+    before = dict(LAUNCHES)
+    gen = torch.Generator().manual_seed(1)
+    if call == "attention_cuda":
+        q = torch.randn(1, 4, 20, 16, generator=gen)
+        k = torch.randn(1, 2, 20, 16, generator=gen)
+        kw = dict(window=8, softcap=30.0, q_offset=3, kv_offset=-2)
+        got = ops.attention(q, k, k, impl="cuda", **kw)
+        want = ref.attention_qchunk(q, k, k, **kw)
+    else:
+        x, a, g = (torch.rand(2, 9, 5, generator=gen) for _ in range(3))
+        h0 = torch.randn(2, 5, generator=gen)
+        got = ops.rglru(x, a, g, h0, impl="cuda")
+        want = ref.rglru(x, a, g, h0)
+    for a_, b_ in zip(torch.utils._pytree.tree_leaves(got),
+                      torch.utils._pytree.tree_leaves(want)):
+        assert torch.equal(a_, b_)
+    assert dict(LAUNCHES) == before
+
+
+# ----------------------------------------------------------------------
+# The serving kernels on the CPU: flash_attention and rglru_scan
+# ----------------------------------------------------------------------
+
+def _attn_case_inputs(b, hq, hkv, tq, tk, d, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, hq, tq, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, tk, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, tk, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,tq,tk,d,causal,window,softcap,qoff,kvoff", ATTN_CASES)
+def test_flash_attention_cuda_impl_vs_jax_interpret(
+        b, hq, hkv, tq, tk, d, causal, window, softcap, qoff, kvoff):
+    """``attention(impl="cuda")`` on CPU tensors (the plain version)
+    against the Pallas kernel in interpret mode."""
+    q, k, v = _attn_case_inputs(b, hq, hkv, tq, tk, d, b * 17 + tk)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff,
+              kv_offset=kvoff)
+    want = np.asarray(jops.attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), impl="interpret",
+                                     block_q=64, block_k=64, **kw))
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), impl="cuda",
+                        block_q=64, **kw)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATTN_TOL,
+                               rtol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("case", [ATTN_CASES[1], ATTN_CASES[4],
+                                  ATTN_CASES[6]])
+def test_attention_cuda_grad_vs_jax(case):
+    """The kernel path's backward recomputes through the plain path, as
+    JAX's custom_vjp recomputes through the XLA path."""
+    b, hq, hkv, tq, tk, d, causal, window, softcap, qoff, kvoff = case
+    q, k, v = _attn_case_inputs(b, hq, hkv, tq, tk, d, 7)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff,
+              kv_offset=kvoff)
+    want = jax.grad(lambda q_, k_, v_: jnp.sum(jops.attention(
+        q_, k_, v_, impl="xla", block_q=64, **kw) ** 2),
+        argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    req = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = ops.attention(*req, impl="cuda", block_q=64, **kw)
+    got = torch.autograd.grad((out ** 2).sum(), req)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATTN_TOL,
+                                   rtol=ATTN_TOL)
+
+
+RGLRU_TOL = 2e-5
+
+
+@pytest.mark.parametrize("b,t,d", [(2, 128, 64), (1, 300, 100),
+                                   (3, 64, 512), (1, 17, 9)])
+def test_rglru_vs_jax(b, t, d):
+    """Every impl of ``ops.rglru`` against JAX's oracle and XLA scan
+    (not its interpret kernel, which jax 0.9.0 cannot run)."""
+    rng = np.random.default_rng(t)
+    x = rng.normal(size=(b, t, d)).astype(np.float32)
+    a = rng.uniform(0.5, 0.999, size=(b, t, d)).astype(np.float32)
+    g = rng.uniform(size=(b, t, d)).astype(np.float32)
+    h0 = rng.normal(size=(b, d)).astype(np.float32)
+    for h in (None, h0):
+        jargs = [jnp.asarray(z) for z in (x, a, g)]
+        jh = None if h is None else jnp.asarray(h)
+        wants = [jref.rglru(*jargs, jh), jops.rglru(*jargs, jh, impl="xla")]
+        targs = [torch.from_numpy(z) for z in (x, a, g)]
+        th = None if h is None else torch.from_numpy(h)
+        for impl in ("torch", "ref", "cuda"):
+            y, ht = ops.rglru(*targs, th, impl=impl)
+            assert y.dtype == torch.float32 and ht.shape == (b, d)
+            for wy, wh in wants:
+                np.testing.assert_allclose(y.numpy(), np.asarray(wy),
+                                           atol=RGLRU_TOL, rtol=RGLRU_TOL)
+                np.testing.assert_allclose(ht.numpy(), np.asarray(wh),
+                                           atol=RGLRU_TOL, rtol=RGLRU_TOL)
+
+
+def test_rglru_kernel_path_raises_for_gradients():
+    x = torch.rand(1, 4, 3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.rglru(x, x.detach(), x.detach(), impl="cuda")
+    y, _ = ops.rglru(x, x.detach(), x.detach(), impl="torch")
+    y.sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+    with torch.no_grad():
+        ops.rglru(x, x, x, impl="cuda")
 
 
 # ----------------------------------------------------------------------
@@ -305,3 +413,38 @@ def test_cuda_kernels_match_plain_versions(n, d):
     assert torch.equal(q, qr) and torch.equal(s, sr)
     assert torch.equal(quantize.chunk_dequantize(q, s),
                        ref.chunk_dequantize(q, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,hq,hkv,tq,tk,d,causal,window,softcap,qoff,kvoff", ATTN_CASES)
+def test_cuda_flash_attention_matches_plain_version(
+        b, hq, hkv, tq, tk, d, causal, window, softcap, qoff, kvoff):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    q, k, v = (torch.from_numpy(a).cuda()
+               for a in _attn_case_inputs(b, hq, hkv, tq, tk, d, 3))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff,
+              kv_offset=kvoff)
+    before = LAUNCHES["flash_attention"]
+    got = ops.attention(q, k, v, impl="cuda", **kw)
+    assert LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(got, ref.attention_qchunk(q, k, v, **kw),
+                               atol=ATTN_TOL, rtol=ATTN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d", [(2, 128, 64), (1, 17, 9), (4, 1, 2560)])
+def test_cuda_rglru_scan_matches_plain_version(b, t, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, g = (torch.rand((b, t, d), generator=gen, device="cuda")
+            for _ in range(2))
+    a = 0.5 + 0.49 * torch.rand((b, t, d), generator=gen, device="cuda")
+    h0 = torch.randn((b, d), generator=gen, device="cuda")
+    for h in (None, h0):
+        y, ht = ops.rglru(x, a, g, h, impl="cuda")
+        yr, hr = ref.rglru(x, a, g, h)
+        torch.testing.assert_close(y, yr, atol=RGLRU_TOL, rtol=RGLRU_TOL)
+        torch.testing.assert_close(ht, hr, atol=RGLRU_TOL, rtol=RGLRU_TOL)

@@ -30,6 +30,8 @@ ATOL, RTOL = 1e-5, 1e-4
 # every configuration whose layers are all "global"
 GLOBAL_ARCHS = ["qwen3-1.7b", "deepseek-7b", "chameleon-34b",
                 "hubert-xlarge"]
+# the configurations the serving slice ports: "local" and "rglru" layers
+SERVE_ARCHS = ["gemma2-2b", "gemma3-4b", "recurrentgemma-2b"]
 
 
 def _close(got, want, atol=ATOL, rtol=RTOL):
@@ -116,7 +118,7 @@ def test_embed_and_unembed_keep_jax_numerics_in_bf16():
            atol=1e-3, rtol=1e-3)
 
 
-@pytest.mark.parametrize("arch", GLOBAL_ARCHS)
+@pytest.mark.parametrize("arch", GLOBAL_ARCHS + SERVE_ARCHS)
 def test_init_params_tree_matches_jax(arch):
     cfg, tcfg, jp, _ = _carry(arch)
     gen = torch.Generator().manual_seed(0)
@@ -127,10 +129,14 @@ def test_init_params_tree_matches_jax(arch):
     for a, b in zip(jl, tl):
         assert tuple(a.shape) == tuple(b.shape)
         assert str(a.dtype) == str(b.dtype).replace("torch.", "")
-    assert param_count(tp) == tcfg.param_count()
+    assert param_count(tp) == sum(a.size for a in jl)
+    if "rglru" not in tcfg.pattern:
+        # ArchConfig's analytic count (shared with repro) overcounts an
+        # rglru layer's gates; both packages' trees agree with each other
+        assert param_count(tp) == tcfg.param_count()
 
 
-@pytest.mark.parametrize("arch", GLOBAL_ARCHS)
+@pytest.mark.parametrize("arch", GLOBAL_ARCHS + SERVE_ARCHS)
 def test_forward_vs_jax(arch):
     cfg, tcfg, jp, tp = _carry(arch)
     x, _ = _inputs(cfg)
@@ -140,7 +146,8 @@ def test_forward_vs_jax(arch):
     _close(got.detach().numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "hubert-xlarge"]
+                         + SERVE_ARCHS)
 def test_train_loss_and_grads_vs_jax(arch):
     cfg, tcfg, jp, tp = _carry(arch)
     x, y = _inputs(cfg, seed=1)
@@ -175,9 +182,17 @@ def test_remat_changes_no_value():
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "granite-moe-1b-a400m",
-                                  "xlstm-350m", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "olmoe-1b-7b",
+                                  "xlstm-350m", "xlstm-350m/slstm"])
 def test_unported_layer_kinds_raise(arch):
+    from repro_torch.models.layers import init_cache, init_layer
     gen = torch.Generator().manual_seed(0)
+    if arch.endswith("/slstm"):
+        cfg = get_config(arch.split("/")[0], reduced=True)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_layer(cfg, "slstm", gen)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_cache(cfg, "slstm", 1, 8)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(get_config(arch, reduced=True), gen)
