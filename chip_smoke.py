@@ -9,7 +9,9 @@ and imports nothing of the JAX package:
 1. prints the card (``nvidia-smi`` name and power limit) and the torch
    and CUDA versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
-   ``build/torch_kernels/`` and prints how long that took;
+   ``build/torch_kernels/`` and prints how long that took; beside that
+   build it compiles ``csrc/mlstm.cu`` alone with ``-Xptxas -v`` and
+   prints its registers, shared memory and spills;
 3. holds every kernel against its plain PyTorch version on the card at
    small and odd shapes and edge cases: fedavg, quantize and dequantize
    (zero mass, a masked NaN row, bf16 updates, ties, an all-zero row,
@@ -19,18 +21,25 @@ and imports nothing of the JAX package:
    (which must be exactly 0), in f32 (atol = rtol = 3e-5) and bf16
    (1e-2), and the gradient through ``attention(impl="cuda")``;
    rglru_scan with and without h0, T = 1, f32 (2e-5) and bf16;
+   mlstm_chunkwise on tests/test_mlstm_kernel.py's shapes plus head dims
+   512 and 80, gates scaled x10, T = 1, the layer's (B, T, H, dh) views,
+   f32 (5e-4 on h, C, n and m) and bf16 (3e-2), all finite;
 4. the main paths, each with the launch counters set to 0 just before
    it and read just after:
    a. training: the train driver for 4 uncompressed steps of qwen3-1.7b
       at full width and depth (P = 2, batch 8, seq 512), then 2
       compressed steps of ``ElasticFLStep``; all losses finite, each
       aggregation kernel launched;
-   b. serving: ``launch/serve.py`` for gemma2-2b and recurrentgemma-2b
-      at full width and depth, batch 8, an 8192-token prompt (twice
-      gemma2's window, four times recurrentgemma's) and 32 generated
-      tokens; tokens in range, flash_attention (and rglru_scan for
-      recurrentgemma) launched; prints prefill seconds, decode tokens/s
-      and peak memory;
+   b. serving: ``launch/serve.py`` for gemma2-2b, recurrentgemma-2b and
+      xlstm-350m at full width and depth, batch 8, an 8192-token prompt
+      (twice gemma2's window, four times recurrentgemma's) and 32
+      generated tokens; tokens in range, flash_attention (and
+      rglru_scan for recurrentgemma) launched, mlstm_chunkwise launched
+      once per mLSTM layer (21); prints prefill seconds, decode
+      tokens/s and peak memory; for xlstm, a second prefill after the
+      served run, each mLSTM and sLSTM layer in it timed with a
+      synchronise before and after, splits the prefill's seconds by
+      layer kind (the served prefill itself runs unsynchronised);
 5. holds the served prefill against the same prefill through the plain
    versions at full width: last-position logits within a relative L2
    of 2e-2, the first greedy token equal in at least 7 of 8 rows; and
@@ -41,14 +50,15 @@ and imports nothing of the JAX package:
    version and, where there is one, the one PyTorch call that computes
    the same function (``wn @ updates`` for fedavg, ``torch.mul`` for
    dequantize, SDPA for attention without softcap; none for quantize,
-   softcapped attention or rglru).  The bound is the larger of the
-   bytes over the HBM rate and the operations over the card's rate for
-   their type (f32 for the aggregation kernels and rglru, the bf16
-   tensor cores for attention);
+   softcapped attention, rglru or mlstm).  The bound is the larger of
+   the bytes over the HBM rate and the operations over the card's rate
+   for their type (f32 for the aggregation kernels, rglru and mlstm,
+   the bf16 tensor cores for attention);
 7. checks the steps against a reference on a small input: the reduced
    qwen3 config trained 2 compressed steps, and reduced gemma2-2b and
-   recurrentgemma-2b prefill plus 4 decode steps, on the card agree
-   with the same work on the CPU's plain versions;
+   recurrentgemma-2b (40-token prompts) and xlstm-350m (200 tokens, so
+   the last mLSTM chunk pads) prefill plus 4 decode steps, on the card
+   agree with the same work on the CPU's plain versions;
 8. prints one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -58,6 +68,7 @@ non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -80,7 +91,7 @@ FEDAVG_TOL = 2e-5
 BF16_TOL = 1e-2
 ATTN_TOL = 3e-5                 # f32 attention, as tests/test_kernels.py
 RGLRU_TOL = 2e-5                # f32 rglru, as tests/test_kernels.py
-SERVE_ARCHS = ("gemma2-2b", "recurrentgemma-2b")
+SERVE_ARCHS = ("gemma2-2b", "recurrentgemma-2b", "xlstm-350m")
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 8192, 32
 SERVE_REL_L2 = 2e-2             # kernel vs plain prefill logits, bf16
 SERVE_TOKENS_AGREE = 7          # of SERVE_BATCH first greedy tokens
@@ -109,6 +120,27 @@ ATTN_CASES = [
 DEAD_ROWS = {13: 5, 14: 70}     # ATTN_CASES index -> leading dead rows
 RGLRU_CASES = [(2, 128, 64), (1, 300, 100), (3, 64, 512), (1, 17, 9),
                (4, 1, 2560)]
+MLSTM_TOL = 5e-4                # f32, as tests/test_mlstm_kernel.py
+MLSTM_BF16_TOL = 3e-2
+# b, h, t, dh, chunk, gate scale, dtype, layout: tests/test_mlstm_kernel.py's
+# shapes, then head dims 512 and 80 (ragged slices and row blocks), gates
+# x10, T = 1, the layer's transposed (B, T, H, dh) views, chunk 100, bf16
+MLSTM_CASES = [
+    (2, 4, 64, 16, 16, 1.0, "float32", "bhtd"),
+    (1, 2, 128, 32, 32, 1.0, "float32", "bhtd"),
+    (1, 1, 256, 128, 128, 1.0, "float32", "bhtd"),
+    (2, 2, 96, 8, 16, 1.0, "float32", "bhtd"),
+    (1, 2, 256, 512, 128, 1.0, "float32", "bthd"),
+    (2, 3, 160, 80, 32, 1.0, "float32", "bhtd"),
+    (2, 2, 128, 64, 64, 10.0, "float32", "bhtd"),
+    (1, 4, 256, 512, 128, 10.0, "float32", "bthd"),
+    (1, 1, 1, 16, 1, 1.0, "float32", "bhtd"),
+    (1, 2, 200, 48, 100, 1.0, "float32", "bthd"),
+    (1, 2, 64, 32, 32, 1.0, "bfloat16", "bhtd"),
+    (2, 4, 256, 512, 128, 1.0, "bfloat16", "bthd"),
+]
+XLSTM_SMALL_PROMPT = 200        # pads the reduced model's last mLSTM chunk
+TF32_OPS_PER_S = 494e12         # TF32 tensor cores, dense, same sheet
 
 
 class SmokeFailure(RuntimeError):
@@ -152,9 +184,30 @@ def card_line() -> str:
 
 
 def build() -> float:
+    """Build the extension; meanwhile compile ``csrc/mlstm.cu`` alone
+    with ``-Xptxas -v`` and log what ptxas says of its kernels."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.extension()
+    obj = _build.BUILD_DIR.parent / "mlstm_ptxas.o"
+    obj.parent.mkdir(parents=True, exist_ok=True)
+    ptxas = subprocess.Popen(
+        [str(Path(CUDA_HOME) / "bin" / "nvcc"), *_build.CUDA_FLAGS,
+         "-std=c++17", "-Xptxas", "-v", "-c", str(_build.CSRC / "mlstm.cu"),
+         f"-I{_build.CSRC}", "-o", str(obj)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        _build.extension()
+        report, _ = ptxas.communicate(timeout=600)
+    finally:
+        if ptxas.poll() is None:
+            ptxas.kill()
+            ptxas.wait()
+    check(ptxas.returncode == 0, f"nvcc -Xptxas -v mlstm.cu:\n{report}")
+    for line in report.splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill")):
+            log(f"mlstm.cu {line.strip()}")
     return time.perf_counter() - t0
 
 
@@ -348,6 +401,52 @@ def check_small_serving() -> None:
     log(f"small serving-kernel checks passed ({len(ATTN_CASES)} attention "
         f"shapes x 2 dtypes, the gradient, {len(RGLRU_CASES)} rglru shapes"
         " x 2 dtypes x 2 h0)")
+
+
+def _mlstm_inputs(b, h, t, dh, gate_scale, dtype, layout, gen):
+    """q, k, v (B, H, T, dh) of ``dtype``, i and f (B, H, T) f32; with
+    layout "bthd" they are transposed views of (B, T, H, ...) tensors,
+    as the layer passes them."""
+    import torch
+    dev = torch.device("cuda")
+    shp, gshp = ((b, t, h, dh), (b, t, h)) if layout == "bthd" else (
+        (b, h, t, dh), (b, h, t))
+    q = torch.randn(shp, generator=gen, device=dev) * dh ** -0.5
+    k = torch.randn(shp, generator=gen, device=dev) * dh ** -0.5
+    v = torch.randn(shp, generator=gen, device=dev)
+    i = torch.randn(gshp, generator=gen, device=dev) * gate_scale
+    f = (torch.randn(gshp, generator=gen, device=dev) + 1.0) * gate_scale
+    if layout == "bthd":
+        q, k, v, i, f = (x.transpose(1, 2) for x in (q, k, v, i, f))
+    return q.to(dtype), k.to(dtype), v.to(dtype), i, f
+
+
+def check_small_mlstm() -> None:
+    """mlstm_chunkwise vs its plain version at small and odd shapes: h
+    and the final state (C, n, m), all finite."""
+    import torch
+
+    from repro_torch.kernels import mlstm, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    for b, h, t, dh, chunk, gsc, dtype, layout in MLSTM_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v, i, f = _mlstm_inputs(b, h, t, dh, gsc, dt, layout, gen)
+        got = mlstm.mlstm_chunkwise(q, k, v, i, f, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ref.mlstm_chunkwise(q.float(), k.float(), v.float(), i, f,
+                                   chunk=chunk)
+        what = (f"mlstm_chunkwise ({b}, {h}, {t}, {dh}) chunk {chunk} gates "
+                f"x{gsc} {dtype} {layout}")
+        check(got[0].dtype == dt and got[0].shape == q.shape
+              and all(x.dtype == torch.float32 for x in got[1:]),
+              f"{what}: dtypes {[x.dtype for x in got]}")
+        check(all(bool(torch.isfinite(x).all()) for x in got),
+              f"{what}: non-finite output")
+        tol = MLSTM_TOL if dt == torch.float32 else MLSTM_BF16_TOL
+        for name, g, w in zip(("h", "C", "n", "m"), got, want):
+            _close_err(g, w, tol, tol, f"{what} {name}")
+    log(f"small mlstm checks passed ({len(MLSTM_CASES)} shapes: h, C, n, m)")
 
 
 def check_full_shapes(counts: dict) -> list[dict]:
@@ -568,21 +667,31 @@ def run_serving_path() -> tuple[dict, dict]:
               f"{arch}: tokens outside [0, {cfg.vocab})")
         check(bool(np.isfinite(stats["logits"].numpy()).all()),
               f"{arch}: non-finite prefill logits")
-        check(counts.get("flash_attention", 0) > 0,
-              f"{arch}: flash_attention never launched: {counts}")
-        if "rglru" in cfg.pattern:
+        kinds = list(cfg.pattern) * cfg.n_cycles + list(cfg.tail_kinds)
+        if {"global", "local"} & set(kinds):
+            check(counts.get("flash_attention", 0) > 0,
+                  f"{arch}: flash_attention never launched: {counts}")
+        if "rglru" in kinds:
             check(counts.get("rglru_scan", 0) > 0,
                   f"{arch}: rglru_scan never launched: {counts}")
+        if "mlstm" in kinds:
+            # once per mLSTM layer in prefill; decode runs the cell step
+            n_mlstm = kinds.count("mlstm")
+            check(counts.get("mlstm_chunkwise", 0) == n_mlstm,
+                  f"{arch}: mlstm_chunkwise launched "
+                  f"{counts.get('mlstm_chunkwise', 0)} times, not {n_mlstm}")
         for name, n in counts.items():
             total[name] = total.get(name, 0) + n
-        kinds = list(cfg.pattern) * cfg.n_cycles + list(cfg.tail_kinds)
         kv = 2 * 2 * SERVE_BATCH * cfg.n_kv * cfg.head_dim   # k, v bf16
+        dh_m = 2 * cfg.d_model // max(cfg.rnn_heads, 1)
         mem = {"weights": stats["param_bytes"] / 1e9,
                "caches": stats["cache_bytes"] / 1e9,
                "global_kv": kv * (SERVE_PROMPT + SERVE_GEN)
                * kinds.count("global") / 1e9,
                "local_kv": kv * (cfg.window or 0) * kinds.count("local")
                / 1e9,
+               "mlstm_state": 4.0 * SERVE_BATCH * cfg.rnn_heads * dh_m
+               * (dh_m + 1) * kinds.count("mlstm") / 1e9,
                "peak": peak}
         out[arch] = {"stats": stats, "counts": counts, "mem": mem}
         log(f"serve {arch} full width, batch {SERVE_BATCH}, prompt "
@@ -591,10 +700,79 @@ def run_serving_path() -> tuple[dict, dict]:
             f"{stats['decode_tok_s']:.1f} tok/s ({stats['decode_s']:.3f} s);"
             f" peak memory {peak:.2f} GB (weights {mem['weights']:.2f}, "
             f"caches {mem['caches']:.2f}: global KV {mem['global_kv']:.2f},"
-            f" local KV {mem['local_kv']:.2f} GB); launches {counts}")
+            f" local KV {mem['local_kv']:.2f}, mLSTM C and n "
+            f"{mem['mlstm_state']:.2f} GB); launches {counts}")
+        if {"mlstm", "slstm"} & set(kinds):
+            pre, layer_s = prefill_split(cfg)
+            log(f"{arch} prefill by layer kind (a second prefill, each "
+                f"xLSTM layer synchronised and timed: {pre:.3f} s against "
+                f"the served {stats['prefill_s']:.3f} s): "
+                + "; ".join(f"{kinds.count(k)} {k} layers {t:.3f} s "
+                            f"({t / kinds.count(k):.3f} s each, "
+                            f"{100 * t / pre:.1f}%)"
+                            for k, t in sorted(layer_s.items())))
     free_cuda()
     log(f"launches on the serving path: {total}")
     return total, out
+
+
+def prefill_split(cfg) -> tuple[float, dict]:
+    """The served config's prefill once more, after the served run and
+    outside its launch count, with each xLSTM prefill layer timed
+    (``prefill_layer_seconds``): its own seconds and the seconds per
+    layer kind.  The served prefill_s carries no such synchronisation."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import prefill
+
+    layer_s: dict = {}
+    with torch.no_grad():
+        params = serve.make_params(cfg, "cuda")
+        prompts = serve.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, "cuda")
+        with prefill_layer_seconds(layer_s):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = prefill(cfg, params, prompts,
+                                     max_len=SERVE_PROMPT + SERVE_GEN)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+    del params, prompts, logits, caches
+    free_cuda()
+    return total, layer_s
+
+
+@contextlib.contextmanager
+def prefill_layer_seconds(totals: dict, kinds=("mlstm", "slstm")):
+    """Add to ``totals[kind]`` the host seconds (synchronised before and
+    after) of each prefill call of those layer kinds, for as long as
+    the context lasts, so a prefill's time splits by layer kind; decode
+    calls run untimed.  It swaps ``layers._apply_<kind>``, which
+    ``layers.apply_layer`` looks up at each call."""
+    import torch
+
+    from repro_torch.models import layers
+    originals = {kind: getattr(layers, f"_apply_{kind}") for kind in kinds}
+
+    def timed(kind, fn):
+        def apply(cfg, p, x, mode, cache, pos):
+            if mode != "prefill":
+                return fn(cfg, p, x, mode, cache, pos)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(cfg, p, x, mode, cache, pos)
+            torch.cuda.synchronize()
+            totals[kind] = totals.get(kind, 0.0) + time.perf_counter() - t0
+            return out
+        return apply
+
+    for kind, fn in originals.items():
+        setattr(layers, f"_apply_{kind}", timed(kind, fn))
+    try:
+        yield totals
+    finally:
+        for kind, fn in originals.items():
+            setattr(layers, f"_apply_{kind}", fn)
 
 
 def check_serving_vs_plain(served: dict) -> None:
@@ -619,7 +797,8 @@ def check_serving_vs_plain(served: dict) -> None:
             # the noise floor of bf16 through the whole depth: the plain
             # path again, its first norm's output scaled by 1 + 2^-8
             # (one bf16 ulp)
-            first = params["cycles"]["slot0"]["ln1"]
+            slot0 = params["cycles"]["slot0"]
+            first = slot0["ln1" if "ln1" in slot0 else "norm"]
             first[0].fill_(2.0 ** -8)
             bumped, caches = prefill(cfg, params, prompts,
                                      max_len=SERVE_PROMPT + SERVE_GEN)
@@ -764,6 +943,53 @@ def check_full_shapes_serving(counts: dict) -> list[dict]:
     return rows
 
 
+def check_full_shape_mlstm(counts: dict) -> list[dict]:
+    """mlstm_chunkwise at xlstm-350m's prefill shape, as the layer calls
+    it (transposed views of (B, T, H, dh) f32): compare with the plain
+    version, time, bound."""
+    import torch
+
+    from repro_torch.kernels import mlstm, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    b, h, t, dh, chunk = SERVE_BATCH, 4, SERVE_PROMPT, 512, 128
+    q, k, v, i, f = _mlstm_inputs(b, h, t, dh, 1.0, torch.float32, "bthd",
+                                  gen)
+    got = mlstm.mlstm_chunkwise(q, k, v, i, f, chunk=chunk)
+    want = ref.mlstm_chunkwise(q, k, v, i, f, chunk=chunk)
+    check(all(bool(torch.isfinite(x).all()) for x in got),
+          "mlstm_chunkwise full shape: non-finite output")
+    err = max(_close_err(g, w, MLSTM_TOL, MLSTM_TOL, f"mlstm full {name}")
+              for name, g, w in zip(("h", "C", "n", "m"), got, want))
+    del got, want
+    ms = time_ms(lambda: mlstm.mlstm_chunkwise(q, k, v, i, f, chunk=chunk))
+    plain = time_ms(lambda: ref.mlstm_chunkwise(q, k, v, i, f, chunk=chunk),
+                    runs=3)
+    # the function's own work per (b, h) and chunk of lc steps: C0 q and
+    # the C update (2 lc dh^2 each), and the live (causal) triangle of
+    # the scores and of P v (2 dh lc (lc + 1) / 2 each); the denominator
+    # comes from the scores' row sums, so no W k product is counted
+    lcs = [min(chunk, t - s) for s in range(0, t, chunk)]
+    ops = b * h * sum(4.0 * lc * dh * dh + 2.0 * dh * lc * (lc + 1)
+                      for lc in lcs)
+    nbytes = 4.0 * (4 * b * h * t * dh + 2 * b * h * t
+                    + b * h * (dh * dh + dh + 1))
+    bound = bound_ms(nbytes, ops)
+    tf32 = ops / TF32_OPS_PER_S * 1e3
+    row = _row("mlstm_chunkwise", "csrc/mlstm.cu",
+               "src/repro/kernels/mlstm.py:102", counts, err, ms, plain,
+               bound, None)
+    row["shape"] = f"xlstm-350m prefill: ({b}, {h}, {t}, {dh}) f32, chunk {chunk}"
+    log(f"mlstm_chunkwise ({b}, {h}, {t}, {dh}) f32 chunk {chunk}: {ms:.3f} ms "
+        f"({ops / ms / 1e9:.1f} TFLOP/s, bound {bound[0]:.3f} ms by "
+        f"{bound[1]}; the same operations on the TF32 tensor cores "
+        f"{tf32:.3f} ms); plain {plain:.3f} ms; no library call; max err "
+        f"{err:.3e}")
+    del q, k, v, i, f
+    free_cuda()
+    return [row]
+
+
 def check_small_serve_vs_cpu() -> None:
     """Reduced serving configs, prefill + 4 decode steps: the card
     (CUDA kernels) against the CPU (plain versions), same parameters."""
@@ -777,8 +1003,9 @@ def check_small_serve_vs_cpu() -> None:
     for arch in SERVE_ARCHS:
         cfg = serve.serving_config(arch, reduced=True)
         p_cpu = serve.make_params(cfg, "cpu")
+        t = XLSTM_SMALL_PROMPT if "mlstm" in cfg.pattern else 40
         prompts = np.random.default_rng(4).integers(0, cfg.vocab,
-                                                    size=(2, 40))
+                                                    size=(2, t))
         logits: dict = {}
         toks: list = []          # the CPU's greedy tokens, fed to both
         with torch.no_grad():
@@ -786,21 +1013,21 @@ def check_small_serve_vs_cpu() -> None:
                 params = tree_map(lambda x: x.to(dev, copy=True), p_cpu)
                 lg, caches = prefill(cfg, params,
                                      torch.as_tensor(prompts, device=dev),
-                                     max_len=44)
+                                     max_len=t + 4)
                 steps = [lg.cpu()]
                 for i in range(4):
                     if dev == "cpu":
                         toks.append(torch.argmax(steps[-1], -1))
                     lg, caches = decode_step(cfg, params, caches,
-                                             toks[i].to(dev), 40 + i)
+                                             toks[i].to(dev), t + i)
                     steps.append(lg.cpu())
                 logits[dev] = steps
         err = 0.0
         for c, g in zip(logits["cpu"], logits["cuda"]):
             err = max(err, _close_err(g, c, 1e-5, 1e-4,
                                       f"reduced {arch} card vs CPU"))
-        log(f"reduced {arch} prefill + 4 decode steps: card == CPU, max "
-            f"abs err {err:.3e} (rtol 1e-4, atol 1e-5)")
+        log(f"reduced {arch} prompt {t} prefill + 4 decode steps: card == "
+            f"CPU, max abs err {err:.3e} (rtol 1e-4, atol 1e-5)")
 
 
 def check_small_step_vs_cpu() -> None:
@@ -858,11 +1085,13 @@ def main() -> int:
         log(f"kernel build: {build():.1f} s")
         check_small()
         check_small_serving()
+        check_small_mlstm()
         counts = run_main_path()
         serve_counts, served = run_serving_path()
         check_serving_vs_plain(served)
         rows = check_full_shapes(counts)
         rows += check_full_shapes_serving(serve_counts)
+        rows += check_full_shape_mlstm(serve_counts)
         check_small_step_vs_cpu()
         check_small_serve_vs_cpu()
     except SmokeFailure as e:

@@ -42,7 +42,10 @@ from repro_torch.tree import flatten, unflatten
 def _value_and_grad(loss_fn, leaves, treedef, inp, lab):
     req = [l.detach().requires_grad_(True) for l in leaves]
     loss = loss_fn(unflatten(treedef, req), inp, lab)
-    grads = torch.autograd.grad(loss, req)
+    # a leaf the loss never reads (an mLSTM layer's up_r, as in JAX)
+    # gets a zero gradient, as jax.grad gives it
+    grads = torch.autograd.grad(loss, req, allow_unused=True,
+                                materialize_grads=True)
     return loss.detach(), grads
 
 

@@ -10,11 +10,13 @@ plain versions):
 * ``attention`` — flash attention forward with causal / window /
                   softcap / GQA and decode-cache offsets (serving).
 * ``rglru``     — the RG-LRU linear recurrence (recurrentgemma).
+* ``mlstm``     — the chunkwise-parallel mLSTM from a zero state
+                  (xLSTM prefill).
 
 ``LAUNCHES`` counts the launches of each kernel (see ``_build.py``).
 """
-from . import attention, fedavg, ops, quantize, ref, rglru
+from . import attention, fedavg, mlstm, ops, quantize, ref, rglru
 from ._build import LAUNCHES, reset_launches
 
-__all__ = ["attention", "fedavg", "ops", "quantize", "ref", "rglru",
-           "LAUNCHES", "reset_launches"]
+__all__ = ["attention", "fedavg", "mlstm", "ops", "quantize", "ref",
+           "rglru", "LAUNCHES", "reset_launches"]

@@ -19,7 +19,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("bindings.cpp", "fedavg.cu", "quantize.cu", "attention.cu",
-           "rglru.cu")
+           "rglru.cu", "mlstm.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: collections.Counter = collections.Counter()

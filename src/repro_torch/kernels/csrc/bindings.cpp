@@ -1,7 +1,8 @@
 // PyTorch bindings for the launchers in kernels.h.
 //
 // The only source that includes torch/extension.h.  It is called only
-// by the wrappers in fedavg.py, quantize.py, attention.py and rglru.py,
+// by the wrappers in fedavg.py, quantize.py, attention.py, rglru.py and
+// mlstm.py,
 // which check device, dtype, shape, contiguity and alignment and
 // allocate every output and scratch tensor with torch.empty; the typed
 // data_ptr<T>() calls below still refuse a tensor of another dtype.  Each entry point launches on
@@ -92,6 +93,31 @@ void rglru_scan(const at::Tensor& x, const at::Tensor& a,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void mlstm_chunkwise(const at::Tensor& q, const at::Tensor& k,
+                     const at::Tensor& v, const at::Tensor& i,
+                     const at::Tensor& f, const at::Tensor& h,
+                     const at::Tensor& c, const at::Tensor& n,
+                     const at::Tensor& m, int64_t chunk) {
+  TORCH_CHECK(k.strides().equals(q.strides()) &&
+                  v.strides().equals(q.strides()) &&
+                  h.strides().equals(q.strides()) && q.stride(3) == 1,
+              "mlstm_chunkwise: q, k, v and h must share strides with a "
+              "unit last stride");
+  TORCH_CHECK(f.strides().equals(i.strides()),
+              "mlstm_chunkwise: i and f must share strides");
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch(repro_torch::launch_mlstm_chunkwise(
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   i.data_ptr<float>(), f.data_ptr<float>(), h.data_ptr(),
+                   c.data_ptr<float>(), n.data_ptr<float>(),
+                   m.data_ptr<float>(), q.size(0), q.size(1), q.size(2),
+                   q.size(3), chunk, q.stride(0), q.stride(1), q.stride(2),
+                   i.stride(0), i.stride(1), i.stride(2), dtype_code(q),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "mlstm_chunkwise");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -108,4 +134,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "q_offset, kv_offset, scale)");
   m.def("rglru_scan", &rglru_scan,
         "RG-LRU scan (x, a, gx, h0 or None, y, h_last)");
+  m.def("mlstm_chunkwise_shape_ok", &repro_torch::mlstm_chunkwise_shape_ok,
+        "Whether mlstm_chunkwise takes head dim dh and chunk length chunk");
+  m.def("mlstm_chunkwise", &mlstm_chunkwise,
+        "Chunkwise mLSTM from a zero state (q, k, v, i, f, h, C, n, m, "
+        "chunk)");
 }

@@ -64,4 +64,22 @@ cudaError_t launch_rglru_scan(const void* x, const void* a, const void* gx,
                               int64_t b, int64_t t, int64_t d, int dtype,
                               cudaStream_t stream);
 
+// Chunkwise mLSTM from a zero state (C = 0, n = 0, m = -1e30).  q, k, v
+// and h (b, hh, t, dh) of `dtype` are addressed through the element
+// strides (sb, sh, st) with a unit dh stride; i and f (b, hh, t) f32
+// through (gb, gh, gt).  Writes h, and C (b, hh, dh, dh), n (b, hh, dh)
+// and m (b, hh) f32, contiguous.  t must be a multiple of chunk, and
+// (dh, chunk) must pass mlstm_chunkwise_shape_ok.  Returns the error of
+// the attribute call or of the launch (cudaGetLastError).
+constexpr int kMaxMlstmChunk = 128;
+bool mlstm_chunkwise_shape_ok(int64_t dh, int64_t chunk);
+cudaError_t launch_mlstm_chunkwise(const void* q, const void* k,
+                                   const void* v, const float* i,
+                                   const float* f, void* h, float* c,
+                                   float* n, float* m, int64_t b, int64_t hh,
+                                   int64_t t, int64_t dh, int64_t chunk,
+                                   int64_t sb, int64_t sh, int64_t st,
+                                   int64_t gb, int64_t gh, int64_t gt,
+                                   int dtype, cudaStream_t stream);
+
 }  // namespace repro_torch

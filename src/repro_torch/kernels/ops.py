@@ -8,14 +8,14 @@ The ``impl=`` names follow ``repro/kernels/ops.py``:
                       the kernel for CUDA tensors.
 * ``impl="torch"``  — plain PyTorch, blocked where the JAX ``"xla"``
                       path is blocked (attention is chunked over q;
-                      rglru is a log-depth scan), and differentiable.
+                      rglru is a log-depth scan; mlstm is chunkwise),
+                      and differentiable.
 * ``impl="ref"``    — the oracles in ``ref.py`` (O(T^2) attention,
-                      the sequential rglru loop).
+                      the sequential rglru loop, the chunkwise mlstm).
 
-The mLSTM kernel belongs to a later slice of the port (ROADMAP.md,
-kernel #6); asking for it raises ``NotImplementedError``.  JAX's
-two-block sliding-window path (``_xla_attention_swa``) is not ported:
-``impl="torch"`` computes the same function with the q-chunked path.
+JAX's two-block sliding-window path (``_xla_attention_swa``) is not
+ported: ``impl="torch"`` computes the same function with the q-chunked
+path.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import torch
 from . import ref
 from .attention import flash_attention as _flash_cuda
 from .fedavg import fedavg_reduce as _fedavg_cuda
+from .mlstm import mlstm_chunkwise as _mlstm_cuda
 from .quantize import chunk_dequantize as _dq_cuda
 from .quantize import chunk_quantize as _q_cuda
 from .rglru import rglru_scan as _rglru_cuda
@@ -128,10 +129,38 @@ def rglru(x: torch.Tensor, a: torch.Tensor, gate_x: torch.Tensor,
     raise ValueError(f"unknown rglru impl {impl!r}")
 
 
-def mlstm(*args, **kwargs):
-    raise NotImplementedError(
-        "mlstm is ported with the mlstm_chunkwise kernel and the xLSTM "
-        "layer kinds (ROADMAP.md, kernel #6)")
+class _MlstmChunkwise(torch.autograd.Function):
+    """The kernel forward; no backward, as the Pallas kernel has no VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_pre, f_pre, chunk):
+        return _mlstm_cuda(q, k, v, i_pre, f_pre, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            "mlstm(impl='cuda') has no gradient, as the Pallas "
+            "mlstm_chunkwise has none; use impl='torch' to train (the "
+            "layers' train mode does)")
+
+
+def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          i_pre: torch.Tensor, f_pre: torch.Tensor, *, chunk: int = 128,
+          impl: str = "torch"):
+    """Chunkwise-parallel mLSTM from a zero state.
+
+    q, k, v: (B, H, T, dh) (q, k pre-scaled); i_pre, f_pre: (B, H, T).
+    Returns (h (B, H, T, dh), C, n, m).  ``impl="cuda"`` is the
+    ``mlstm_chunkwise`` kernel (the plain version for CPU tensors),
+    which needs T to be a multiple of ``chunk``; ``"torch"`` and
+    ``"ref"`` are the plain chunkwise form, which pads T itself, as
+    JAX's ``impl="xla"`` does.
+    """
+    if impl == "cuda":
+        return _MlstmChunkwise.apply(q, k, v, i_pre, f_pre, chunk)
+    if impl in ("torch", "ref"):
+        return ref.mlstm_chunkwise(q, k, v, i_pre, f_pre, chunk=chunk)
+    raise ValueError(f"unknown mlstm impl {impl!r}")
 
 
 # ----------------------------------------------------------------------

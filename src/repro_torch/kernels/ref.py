@@ -2,15 +2,18 @@
 
 Each function here computes what its counterpart in
 ``repro/kernels/ref.py`` computes, in straightforward tensor code, and
-``attention_qchunk`` ports ``repro/kernels/ops.py::_xla_attention_qchunk``.
-The CUDA wrappers (``fedavg.py``, ``quantize.py``, ``attention.py``,
-``rglru.py``) use them for tensors that lie on the CPU, the tests
-compare them with the JAX oracles, and ``chip_smoke.py`` holds each
-CUDA kernel against them on the card.
+``attention_qchunk`` ports ``repro/kernels/ops.py::_xla_attention_qchunk``;
+``mlstm_chunkwise_torch`` and ``mlstm_step`` port the mLSTM functions of
+``repro/models/layers.py``, which the layers call from here.  The CUDA
+wrappers (``fedavg.py``, ``quantize.py``, ``attention.py``,
+``rglru.py``, ``mlstm.py``) use them for tensors that lie on the CPU,
+the tests compare them with the JAX oracles, and ``chip_smoke.py``
+holds each CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -132,6 +135,151 @@ def rglru(x: torch.Tensor, a: torch.Tensor, gate_x: torch.Tensor,
     y = (torch.stack(ys, dim=1) if ys
          else torch.zeros_like(xf))
     return y.to(x.dtype), h
+
+
+# ----------------------------------------------------------------------
+# Chunkwise mLSTM (xLSTM matrix memory, Beck et al. 2024)
+# ----------------------------------------------------------------------
+
+def mlstm_pad(q, k, v, i_pre, f_pre, chunk: int):
+    """Pad T (dim 1) of the (B, T, H, ...) mLSTM inputs to a multiple of
+    ``chunk`` with inert steps: zero q, k, v and f (A stays flat), and
+    i = -1e30 (adds nothing).  Returns the five tensors, as given when
+    T is already a multiple."""
+    pad = (-q.shape[1]) % chunk
+    if not pad:
+        return q, k, v, i_pre, f_pre
+    q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+               for x in (q, k, v))
+    return (q, k, v,
+            torch.nn.functional.pad(i_pre, (0, 0, 0, pad), value=NEG_INF),
+            torch.nn.functional.pad(f_pre, (0, 0, 0, pad)))
+
+
+def mlstm_chunkwise_torch(q, k, v, i_pre, f_pre, state, *, chunk: int,
+                          remat: bool = False):
+    """Chunkwise-parallel mLSTM with stabilised exponential gating.
+
+    Port of ``repro/models/layers.py::_mlstm_chunkwise``, op for op.
+    Per head, relative to the chunk's start, with A the inclusive cumsum
+    of f:
+
+        M_j = max(m0, cummax_j(i - A)),   W[j,s] = e^{(i_s - A_s) - M_j}
+        h_j = e^{m0-M_j} C0 q_j + sum_{s<=j} W[j,s] (k_s.q_j) v_s
+        n_j = e^{m0-M_j} n0 + sum_{s<=j} W[j,s] k_s
+        h_j /= max(|n_j . q_j|, 1)
+
+    and the state at the chunk's end uses the same weights at j = L-1.
+    ``chunk`` is cut to T, and T is padded to a multiple of it with
+    inert steps (``mlstm_pad``).  With ``remat`` and grad enabled each
+    chunk is checkpointed, so backward keeps only the chunk-boundary
+    states.
+
+    q, k, v: (B, T, H, dh) (q, k pre-scaled); i_pre, f_pre: (B, T, H).
+    state: (C (B, H, dh, dh), n (B, H, dh), m (B, H)).  Returns
+    (state, h (B, T, H, dh) f32).
+    """
+    b, t, hh, dh = q.shape
+    chunk = min(chunk, t)
+    q, k, v, i_pre, f_pre = mlstm_pad(q, k, v, i_pre, f_pre, chunk)
+    nc = q.shape[1] // chunk
+
+    def chunk_body(C0, n0, m0, qc, kc, vc, ic, fc):
+        L = qc.shape[1]
+        ic = ic.float().transpose(1, 2)                    # (b,h,L)
+        fc = fc.float().transpose(1, 2)
+        qh = qc.float().transpose(1, 2)                    # (b,h,L,dh)
+        kh = kc.float().transpose(1, 2)
+        vh = vc.float().transpose(1, 2)
+
+        A = torch.cumsum(fc, dim=-1)                       # (b,h,L)
+        gia = ic - A                                       # i_s - A_s
+        g = torch.cummax(gia, dim=2).values
+        M = torch.maximum(m0[..., None], g)                # (b,h,L)
+        c_int = torch.exp(m0[..., None] - M)
+        # W[j,s] = exp(gia_s - M_j), s <= j
+        W = torch.exp(gia[..., None, :] - M[..., :, None])
+        mask = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                     device=W.device))
+        W = torch.where(mask, W, 0.0)
+
+        scores = torch.einsum("bhjd,bhsd->bhjs", qh, kh)
+        inter_num = torch.einsum("bhij,bhsj->bhsi", C0, qh)  # C0 q_j
+        h_num = (c_int[..., None] * inter_num
+                 + torch.einsum("bhjs,bhsi->bhji", W * scores, vh))
+        nj = (c_int[..., None] * n0[:, :, None, :]
+              + torch.einsum("bhjs,bhsd->bhjd", W, kh))
+        den = torch.abs(torch.einsum("bhjd,bhjd->bhj", nj, qh))
+        h = h_num / torch.clamp(den, min=1.0)[..., None]  # (b,h,L,dh)
+
+        # end-of-chunk state
+        AL = A[..., -1]
+        MxL = torch.maximum(m0, g[..., -1])                # (b,h)
+        wL = torch.exp(gia - MxL[..., None])               # (b,h,L)
+        C = (torch.exp(m0 - MxL)[..., None, None] * C0
+             + torch.einsum("bhs,bhsi,bhsj->bhij", wL, vh, kh))
+        n = (torch.exp(m0 - MxL)[..., None] * n0
+             + torch.einsum("bhs,bhsd->bhd", wL, kh))
+        m = AL + MxL
+        return C, n, m, h.transpose(1, 2)                  # (b,L,h,dh)
+
+    remat = remat and torch.is_grad_enabled()
+    C, n, m = state
+    hs = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xs = (q[:, sl], k[:, sl], v[:, sl], i_pre[:, sl], f_pre[:, sl])
+        if remat:
+            C, n, m, h = checkpoint(chunk_body, C, n, m, *xs,
+                                    use_reentrant=False)
+        else:
+            C, n, m, h = chunk_body(C, n, m, *xs)
+        hs.append(h)
+    return (C, n, m), torch.cat(hs, dim=1)[:, :t]
+
+
+def mlstm_zero_state(b: int, hh: int, dh: int, device=None):
+    """The mLSTM's initial state: C (B, H, dh, dh) and n (B, H, dh)
+    zero, m (B, H) at -1e30, all f32."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros((b, hh, dh, dh), **f32),
+            torch.zeros((b, hh, dh), **f32),
+            torch.full((b, hh), NEG_INF, **f32))
+
+
+def mlstm_chunkwise(q, k, v, i_pre, f_pre, *, chunk: int = 128):
+    """The ``mlstm_chunkwise`` kernel's function from a zero state, in
+    its layout: q, k, v (B, H, T, dh) (q, k pre-scaled), i_pre, f_pre
+    (B, H, T) -> (h (B, H, T, dh) in ``q.dtype``, C (B, H, dh, dh),
+    n (B, H, dh), m (B, H), all f32).  The port of JAX's
+    ``ops.mlstm(impl="xla")``: ``mlstm_chunkwise_torch`` on transposed
+    views, with h cast to q's dtype as the kernel writes it (JAX's form
+    keeps it f32)."""
+    b, hh, _, dh = q.shape
+    (C, n, m), hs = mlstm_chunkwise_torch(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        i_pre.transpose(1, 2), f_pre.transpose(1, 2),
+        mlstm_zero_state(b, hh, dh, q.device), chunk=chunk)
+    return hs.transpose(1, 2).to(q.dtype), C, n, m
+
+
+def mlstm_step(state, inputs):
+    """One mLSTM cell step (stabilised exponential gating); port of
+    ``repro/models/layers.py::_mlstm_step``.  state: (C (B, H, dh, dh),
+    n (B, H, dh), m (B, H)); inputs: q, k, v (B, H, dh), i_pre, f_pre
+    (B, H).  Returns (state, h (B, H, dh))."""
+    C, nrm, m = state
+    q_t, k_t, v_t, i_pre, f_pre = inputs
+    m_new = torch.maximum(f_pre + m, i_pre)                # (B, H)
+    fi = torch.exp(f_pre + m - m_new)
+    ii = torch.exp(i_pre - m_new)
+    C = fi[..., None, None] * C + ii[..., None, None] * (
+        v_t[..., :, None] * k_t[..., None, :])             # (B,H,dh,dh)
+    nrm = fi[..., None] * nrm + ii[..., None] * k_t
+    num = torch.einsum("bhij,bhj->bhi", C, q_t)
+    den = torch.abs(torch.einsum("bhj,bhj->bh", nrm, q_t))
+    h = num / torch.clamp(den, min=1.0)[..., None]
+    return (C, nrm, m_new), h
 
 
 # ----------------------------------------------------------------------

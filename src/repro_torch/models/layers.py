@@ -1,4 +1,4 @@
-"""Layer kinds: attention (``"global"``, ``"local"``) and RG-LRU.
+"""Layer kinds: attention (``"global"``, ``"local"``), RG-LRU, mLSTM, sLSTM.
 
 Port of ``repro/models/layers.py``:
 
@@ -19,14 +19,18 @@ take the layer's cache (``model.prefill`` allocates them with
 ``init_cache``, global ones at ``max_len``), write the new keys/values
 or recurrent state into it and return that same dict.
 
-The ``"moe"``, ``"mlstm"`` and ``"slstm"`` kinds raise
-``NotImplementedError`` until later slices port them (ROADMAP.md).
+The mLSTM's prefill runs ``ops.mlstm`` (the ``mlstm_chunkwise``
+kernel when served with ``rnn_impl="pallas"``); its train mode runs the
+plain chunkwise form, which has a gradient.  JAX's scans become Python
+loops.  The ``"moe"`` kind raises ``NotImplementedError`` until a later
+slice ports it (ROADMAP.md).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 from .common import causal_conv1d, dense_init, rms_norm, rope, torch_dtype
 from .config import ArchConfig
@@ -52,8 +56,43 @@ def _act(name: str):
 def _unported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet: the port covers the 'global', "
-        "'local' and 'rglru' layer kinds; ROADMAP.md lists the slices "
-        "that port the rest")
+        "'local', 'rglru', 'mlstm' and 'slstm' layer kinds; ROADMAP.md "
+        "lists the slice that ports the rest")
+
+
+def _chunked_scan(step, init, xs, *, chunk: int, remat: bool):
+    """A scan over time (a Python loop over xs' leading axis) in chunks,
+    each checkpointed when ``remat`` is set and grad is enabled.
+
+    Port of ``repro/models/layers.py::_chunked_scan``: backward then
+    keeps only the chunk-boundary carries and recomputes inside.
+    ``chunk`` shrinks to a divisor of T.  Returns (carry, ys stacked on
+    the leading axis).
+    """
+    def scan(carry, xc):
+        ys = []
+        for i in range(xc[0].shape[0]):
+            carry, y = step(carry, tuple(x[i] for x in xc))
+            ys.append(y)
+        return carry, torch.stack(ys)
+
+    t = xs[0].shape[0]
+    chunk = min(chunk, t)
+    while t % chunk:
+        chunk -= 1
+    nb = t // chunk
+    if nb <= 1:
+        return scan(init, xs)
+    remat = remat and torch.is_grad_enabled()
+    carry, ys = init, []
+    for c in range(nb):
+        xc = tuple(x[c * chunk:(c + 1) * chunk] for x in xs)
+        if remat:
+            carry, y = checkpoint(scan, carry, xc, use_reentrant=False)
+        else:
+            carry, y = scan(carry, xc)
+        ys.append(y)
+    return carry, torch.cat(ys)
 
 
 # ======================================================================
@@ -231,6 +270,173 @@ def _apply_rglru(cfg: ArchConfig, p: dict, x: torch.Tensor, mode: str,
 
 
 # ======================================================================
+# mLSTM (xLSTM matrix-memory block)
+# ======================================================================
+
+MLSTM_CHUNK = 128
+
+
+def _init_mlstm(cfg: ArchConfig, gen: torch.Generator, device=None) -> dict:
+    d = cfg.d_model
+    di = 2 * d
+    dt = torch_dtype(cfg.dtype)
+    f32 = torch.float32
+    conv_w = torch.randn((cfg.conv_width, di), generator=gen, dtype=f32,
+                         device=device)
+    return {
+        "norm": torch.zeros((d,), dtype=dt, device=device),
+        "up_l": dense_init(gen, (d, di), dt, device=device),
+        "up_r": dense_init(gen, (d, di), dt, device=device),
+        "conv_w": (conv_w * cfg.conv_width ** -0.5).to(dt),
+        "wq_i": dense_init(gen, (di, di), dt, device=device),
+        "wk_i": dense_init(gen, (di, di), dt, device=device),
+        "wv_i": dense_init(gen, (di, di), dt, device=device),
+        "wi": dense_init(gen, (di, cfg.rnn_heads), f32, device=device),
+        "wf": dense_init(gen, (di, cfg.rnn_heads), f32, device=device),
+        "wo_gate": dense_init(gen, (di, di), dt, device=device),
+        "down": dense_init(gen, (di, d), dt, device=device),
+    }
+
+
+def _mlstm_prefill(cfg: ArchConfig, q, k, v, i_pre, f_pre):
+    """The chunkwise mLSTM from a zero state through ``ops.mlstm``.
+
+    The chunk is min(MLSTM_CHUNK, T) and T is padded here to a multiple
+    of it with inert steps, as ``_mlstm_chunkwise`` pads, so the kernel
+    runs for any prompt length.  It gets transposed views of the
+    (B, T, H, dh) tensors and reads them through strides.  Returns
+    (state, h (B, T, H, dh)).
+    """
+    t = q.shape[1]
+    chunk = min(MLSTM_CHUNK, t)
+    q, k, v, i_pre, f_pre = ref.mlstm_pad(q, k, v, i_pre, f_pre, chunk)
+    h, C, n, m = ops.mlstm(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), i_pre.transpose(1, 2),
+                           f_pre.transpose(1, 2), chunk=chunk,
+                           impl=_impl(cfg.rnn_impl))
+    return (C, n, m), h.transpose(1, 2)[:, :t]
+
+
+def _apply_mlstm(cfg: ArchConfig, p: dict, x: torch.Tensor, mode: str,
+                 cache, pos):
+    b, t, d = x.shape
+    di = 2 * d
+    hh = cfg.rnn_heads
+    dh = di // hh
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    xl = h @ p["up_l"]
+    # The JAX layer also computes silu(h @ up_r) and never uses it (XLA
+    # drops it); the port skips the product.  up_r's gradient is zero in
+    # both packages.
+    conv_state = cache["conv"] if mode == "decode" else None
+    xc, new_conv = causal_conv1d(xl, p["conv_w"], conv_state)
+
+    scale = dh ** -0.5
+    q = (xc @ p["wq_i"]).reshape(b, t, hh, dh).float() * scale
+    k = (xc @ p["wk_i"]).reshape(b, t, hh, dh).float() * scale
+    v = (xl @ p["wv_i"]).reshape(b, t, hh, dh).float()
+    i_pre = xc.float() @ p["wi"]                           # (B,T,H)
+    f_pre = xc.float() @ p["wf"] + 1.0
+    o = torch.sigmoid(xc @ p["wo_gate"])
+
+    if mode == "decode":
+        state = (cache["C"], cache["n"], cache["m"])
+        state, hs = ref.mlstm_step(
+            state, (q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0]))
+        hs = hs[:, None]                                   # (B,1,H,dh)
+    elif mode == "prefill":
+        state, hs = _mlstm_prefill(cfg, q, k, v, i_pre, f_pre)
+    else:
+        state, hs = ref.mlstm_chunkwise_torch(
+            q, k, v, i_pre, f_pre, ref.mlstm_zero_state(b, hh, dh, x.device),
+            chunk=MLSTM_CHUNK, remat=True)
+    hs = hs.reshape(b, t, di)
+
+    y = (o * hs.to(o.dtype)) @ p["down"]
+    x = x + y
+    if mode in ("decode", "prefill"):
+        for name, new in zip(("C", "n", "m"), state):
+            cache[name].copy_(new)
+        cache["conv"].copy_(new_conv)
+    return x, cache
+
+
+# ======================================================================
+# sLSTM (xLSTM scalar-memory block)
+# ======================================================================
+
+def _init_slstm(cfg: ArchConfig, gen: torch.Generator, device=None) -> dict:
+    d = cfg.d_model
+    hh = cfg.rnn_heads
+    dh = d // hh
+    f = -(-4 * d // 3 // 128) * 128
+    dt = torch_dtype(cfg.dtype)
+    f32 = torch.float32
+    r4 = torch.randn((hh, dh, 4 * dh), generator=gen, dtype=f32,
+                     device=device)
+    return {
+        "norm": torch.zeros((d,), dtype=dt, device=device),
+        "ln2": torch.zeros((d,), dtype=dt, device=device),
+        "w4": dense_init(gen, (d, 4 * d), f32, device=device),
+        "r4": r4 * dh ** -0.5,
+        "b4": torch.zeros((hh, 4 * dh), dtype=f32, device=device),
+        "w_gate": dense_init(gen, (d, f), dt, device=device),
+        "w_up": dense_init(gen, (d, f), dt, device=device),
+        "w_down": dense_init(gen, (f, d), dt, device=device),
+    }
+
+
+def _slstm_step(p, state, wx_t):
+    """wx_t: (B, H, 4*dh) input pre-activations for one step."""
+    c, n, hprev, m = state
+    gates = wx_t + torch.einsum("bhd,hde->bhe", hprev, p["r4"]) + p["b4"]
+    dh = c.shape[-1]
+    i_pre = gates[..., 0 * dh:1 * dh]
+    f_pre = gates[..., 1 * dh:2 * dh] + 1.0
+    z_pre = gates[..., 2 * dh:3 * dh]
+    o_pre = gates[..., 3 * dh:4 * dh]
+    m_new = torch.maximum(f_pre + m, i_pre)
+    ii = torch.exp(i_pre - m_new)
+    ff = torch.exp(f_pre + m - m_new)
+    c = ff * c + ii * torch.tanh(z_pre)
+    n = ff * n + ii
+    h = torch.sigmoid(o_pre) * c / torch.clamp(n, min=1.0)
+    return (c, n, h, m_new), h
+
+
+def _apply_slstm(cfg: ArchConfig, p: dict, x: torch.Tensor, mode: str,
+                 cache, pos):
+    b, t, d = x.shape
+    hh = cfg.rnn_heads
+    dh = d // hh
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    wx = (h.float() @ p["w4"]).reshape(b, t, hh, 4 * dh)
+
+    if mode == "decode":
+        state = (cache["c"], cache["n"], cache["h"], cache["m"])
+        state, hs = _slstm_step(p, state, wx[:, 0])
+        hs = hs[:, None]
+    else:
+        zeros = torch.zeros((b, hh, dh), dtype=torch.float32,
+                            device=x.device)
+        init = (zeros, zeros, zeros,
+                torch.full((b, hh, dh), ref.NEG_INF, dtype=torch.float32,
+                           device=x.device))
+        state, hs = _chunked_scan(
+            lambda s, w: _slstm_step(p, s, w[0]), init,
+            (wx.transpose(0, 1),), chunk=256, remat=(mode == "train"))
+        hs = hs.transpose(0, 1)
+    y = hs.reshape(b, t, d).to(x.dtype)
+    x = x + y
+    hh2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + _dense_ffn(cfg, p, hh2)
+    if mode in ("decode", "prefill"):
+        for name, new in zip(("c", "n", "h", "m"), state):
+            cache[name].copy_(new)
+    return x, cache
+
+
+# ======================================================================
 # Dispatch
 # ======================================================================
 
@@ -240,7 +446,11 @@ def init_layer(cfg: ArchConfig, kind: str, gen: torch.Generator,
         return _init_attn(cfg, kind, gen, device)
     if kind == "rglru":
         return _init_rglru(cfg, gen, device)
-    if kind in ("moe", "mlstm", "slstm"):
+    if kind == "mlstm":
+        return _init_mlstm(cfg, gen, device)
+    if kind == "slstm":
+        return _init_slstm(cfg, gen, device)
+    if kind == "moe":
         raise _unported(f"layer kind {kind!r}")
     raise ValueError(kind)
 
@@ -253,7 +463,11 @@ def apply_layer(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
         return _apply_attn(cfg, kind, p, x, mode, cache, pos)
     if kind == "rglru":
         return _apply_rglru(cfg, p, x, mode, cache, pos)
-    if kind in ("moe", "mlstm", "slstm"):
+    if kind == "mlstm":
+        return _apply_mlstm(cfg, p, x, mode, cache, pos)
+    if kind == "slstm":
+        return _apply_slstm(cfg, p, x, mode, cache, pos)
+    if kind == "moe":
         raise _unported(f"layer kind {kind!r}")
     raise ValueError(kind)
 
@@ -274,6 +488,21 @@ def init_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                                  device=device),
                 "conv": torch.zeros((batch, cfg.conv_width - 1, dr),
                                     dtype=dt, device=device)}
-    if kind in ("moe", "mlstm", "slstm"):
+    if kind == "mlstm":
+        di = 2 * cfg.d_model
+        C, n, m = ref.mlstm_zero_state(batch, cfg.rnn_heads,
+                                       di // cfg.rnn_heads, device)
+        return {"C": C, "n": n, "m": m,
+                "conv": torch.zeros((batch, cfg.conv_width - 1, di),
+                                    dtype=dt, device=device)}
+    f32 = dict(dtype=torch.float32, device=device)
+    if kind == "slstm":
+        hh = cfg.rnn_heads
+        dh = cfg.d_model // hh
+        return {"c": torch.zeros((batch, hh, dh), **f32),
+                "n": torch.zeros((batch, hh, dh), **f32),
+                "h": torch.zeros((batch, hh, dh), **f32),
+                "m": torch.full((batch, hh, dh), ref.NEG_INF, **f32)}
+    if kind == "moe":
         raise _unported(f"the decode cache of layer kind {kind!r}")
     raise ValueError(kind)

@@ -141,14 +141,15 @@ def train_loss(cfg: ArchConfig, p: dict, inputs, labels, mask=None,
 
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                       device=None) -> dict:
-    """Zeroed decode caches, stacked per slot (leading dim n_cycles)."""
+    """Initial decode caches (``init_cache`` of each layer: zeros, and
+    -1e30 for the xLSTM stabilisers), stacked per slot (leading dim
+    n_cycles)."""
     nc = cfg.n_cycles
     cycles = {}
     for i, kind in enumerate(cfg.pattern):
         one = init_cache(cfg, kind, batch, max_len, device=device)
         cycles[f"slot{i}"] = {
-            name: torch.zeros((nc,) + tuple(t.shape), dtype=t.dtype,
-                              device=t.device)
+            name: t[None].expand((nc,) + tuple(t.shape)).clone()
             for name, t in one.items()}
     tail = [init_cache(cfg, kind, batch, max_len, device=device)
             for kind in cfg.tail_kinds]

@@ -5,7 +5,8 @@ plain versions (``repro_torch.kernels.ref`` / ``ops``) and its CUDA
 wrappers on CPU tensors (which run the plain versions) are held
 against ``repro.kernels.ref`` and the Pallas kernels in interpret
 mode (rglru against ``ref.rglru`` and the XLA scan: its interpret
-kernel does not run under jax 0.9.0).  Tolerances follow
+kernel does not run under jax 0.9.0; the mlstm is held against JAX in
+tests/test_torch_xlstm.py).  Tolerances follow
 tests/test_kernels.py: fedavg ``atol=rtol=2e-5``, attention ``3e-5``,
 rglru ``2e-5``, int8 codes and scales exact, dequantized values exact.  Tests marked ``cuda`` build and launch the
 CUDA kernels and skip where there is no GPU.
@@ -274,14 +275,21 @@ def test_attention_torch_is_differentiable():
 def test_unported_impls_raise(call):
     x = torch.zeros(1, 1, 4, 8)
     if call == "mlstm":
-        with pytest.raises(NotImplementedError, match="kernel #6"):
-            ops.mlstm(x, x, x, x, x)
+        # the kernel path has no gradient, as the Pallas kernel has none
+        q = torch.rand(1, 1, 4, 8, requires_grad=True)
+        g = torch.zeros(1, 1, 4)
+        h, *_ = ops.mlstm(q, q, q, g, g, chunk=4, impl="cuda")
+        with pytest.raises(RuntimeError, match="no gradient"):
+            h.sum().backward()
+        h, *_ = ops.mlstm(q, q, q, g, g, chunk=4, impl="torch")
+        h.sum().backward()
+        assert q.grad is not None and bool(torch.isfinite(q.grad).all())
     else:
         with pytest.raises(ValueError):
             ops.fedavg(x[0, 0], torch.ones(4), torch.ones(4), impl="pallas")
 
 
-@pytest.mark.parametrize("call", ["attention_cuda", "rglru"])
+@pytest.mark.parametrize("call", ["attention_cuda", "rglru", "mlstm"])
 def test_cpu_tensors_take_the_plain_kernel_versions(call):
     """The kernel wrappers run their plain versions for CPU tensors and
     count no launch."""
@@ -293,11 +301,16 @@ def test_cpu_tensors_take_the_plain_kernel_versions(call):
         kw = dict(window=8, softcap=30.0, q_offset=3, kv_offset=-2)
         got = ops.attention(q, k, k, impl="cuda", **kw)
         want = ref.attention_qchunk(q, k, k, **kw)
-    else:
+    elif call == "rglru":
         x, a, g = (torch.rand(2, 9, 5, generator=gen) for _ in range(3))
         h0 = torch.randn(2, 5, generator=gen)
         got = ops.rglru(x, a, g, h0, impl="cuda")
         want = ref.rglru(x, a, g, h0)
+    else:
+        qkv = [torch.randn(2, 3, 24, 8, generator=gen) for _ in range(3)]
+        i, f = (torch.randn(2, 3, 24, generator=gen) for _ in range(2))
+        got = ops.mlstm(*qkv, i, f, chunk=8, impl="cuda")
+        want = ref.mlstm_chunkwise(*qkv, i, f, chunk=8)
     for a_, b_ in zip(torch.utils._pytree.tree_leaves(got),
                       torch.utils._pytree.tree_leaves(want)):
         assert torch.equal(a_, b_)

@@ -1,13 +1,14 @@
 """The port's serving path against the JAX package's, on the CPU.
 
-Reduced gemma2-2b, gemma3-4b and recurrentgemma-2b (float32, window
-16), with prompts shorter and longer than the window, so the local
-caches are left-padded in one case and cut to the last ``window`` keys
-in the other, and roll during decode.  Both packages start from the
+Reduced gemma2-2b, gemma3-4b, recurrentgemma-2b (float32, window 16)
+and xlstm-350m, with prompts shorter and longer than the window, so the
+local caches are left-padded in one case and cut to the last ``window``
+keys in the other, and roll during decode.  Both packages start from the
 same JAX-initialised weights (``repro_torch.interop``).  JAX runs its
-Pallas attention kernel in interpret mode and its XLA rglru scan; the
-port runs ``attn_impl="pallas"``/``rnn_impl="pallas"``, which on CPU
-tensors is the plain version inside each kernel wrapper.  JAX's
+Pallas attention kernel in interpret mode, its XLA rglru scan and its
+chunkwise mLSTM; the port runs ``attn_impl="pallas"``/
+``rnn_impl="pallas"``, which on CPU tensors is the plain version inside
+each kernel wrapper.  JAX's
 interpret decode runs only unjitted, with a Python-int ``pos``.
 Tolerance: ``atol=1e-5, rtol=1e-4`` for logits and caches, as for the
 model tests; greedy tokens equal.
@@ -35,7 +36,7 @@ from repro_torch.models import init_decode_cache, prefill  # noqa: E402
 from repro_torch.tree import flatten, leaves  # noqa: E402
 
 ATOL, RTOL = 1e-5, 1e-4
-ARCHS = ["gemma2-2b", "gemma3-4b", "recurrentgemma-2b"]
+ARCHS = ["gemma2-2b", "gemma3-4b", "recurrentgemma-2b", "xlstm-350m"]
 PROMPTS = [10, 37]          # shorter and longer than the window (16)
 STEPS = 4
 BATCH = 2
@@ -108,7 +109,8 @@ def test_prefill_and_decode_vs_jax(arch, t):
             _close_trees(caches, jcaches)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "recurrentgemma-2b",
+                                  "xlstm-350m"])
 def test_jax_prefill_cache_continues_in_the_port(arch):
     """A JAX prefill cache, carried with ``interop``, decodes on in the
     port exactly as it does in JAX."""
@@ -141,7 +143,8 @@ def test_decode_cache_tree_matches_jax(arch):
         np.testing.assert_array_equal(interop.to_numpy(g), np.asarray(w))
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "recurrentgemma-2b",
+                                  "xlstm-350m"])
 def test_serve_driver_on_the_cpu(arch):
     stats = {}
     toks = serve.main(["--arch", arch, "--batch", "3", "--prompt-len", "20",
