@@ -10,16 +10,22 @@ and imports nothing of the JAX package:
    and CUDA versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``build/torch_kernels/`` and prints how long that took; beside that
-   build it compiles ``csrc/mlstm.cu`` alone with ``-Xptxas -v`` and
-   prints its registers, shared memory and spills;
+   build it compiles ``csrc/attention.cu`` and ``csrc/mlstm.cu`` each
+   alone with ``-Xptxas -v`` and prints their registers, shared memory
+   and spills, then the number of ``HGMMA`` instructions in each
+   attention kernel's SASS (``cuobjdump``), which must be nonzero for
+   the wgmma prefill kernel;
 3. holds every kernel against its plain PyTorch version on the card at
    small and odd shapes and edge cases: fedavg, quantize and dequantize
    (zero mass, a masked NaN row, bf16 updates, ties, an all-zero row,
    non-finite rows); flash_attention on the test suite's attention
    cases plus head dims 256 and 80, GQA group 10, ragged tiles, a
    rolling cache with negative key positions and rows with no live key
-   (which must be exactly 0), in f32 (atol = rtol = 3e-5) and bf16
-   (1e-2), and the gradient through ``attention(impl="cuda")``;
+   (which must be exactly 0), and cases for each route (bf16 wgmma
+   prefill at head dims 64, 128 and 256; split-KV decode over many
+   splits, group 10 and 16, Tq 3 and 4, an empty split), in f32 (atol
+   = rtol = 3e-5) and bf16 (1e-2), and the gradient through
+   ``attention(impl="cuda")``;
    rglru_scan with and without h0, T = 1, f32 (2e-5) and bf16;
    mlstm_chunkwise on tests/test_mlstm_kernel.py's shapes plus head dims
    512 and 80, gates scaled x10, T = 1, the layer's (B, T, H, dh) views,
@@ -46,11 +52,14 @@ and imports nothing of the JAX package:
    prints, beside it, how far a one-ulp bump of the first layer's
    normed input moves the plain path's logits (the bf16 noise floor);
 6. each kernel at its main path's full shapes, timed with CUDA events
-   (median of 10 runs after a warm-up) beside its bound, its plain
+   (median of 10 runs after a warm-up, each run enough back-to-back
+   calls to take about 2 ms) beside its bound, its plain
    version and, where there is one, the one PyTorch call that computes
    the same function (``wn @ updates`` for fedavg, ``torch.mul`` for
-   dequantize, SDPA for attention without softcap; none for quantize,
-   softcapped attention, rglru or mlstm).  The bound is the larger of
+   dequantize, SDPA for attention without softcap, with a boolean mask
+   of the live keys where the offsets or the window need one; none for
+   quantize, softcapped attention, rglru or mlstm); each attention row
+   names its route.  The bound is the larger of
    the bytes over the HBM rate and the operations over the card's rate
    for their type (f32 for the aggregation kernels, rglru and mlstm,
    the bf16 tensor cores for attention);
@@ -98,8 +107,8 @@ SERVE_TOKENS_AGREE = 7          # of SERVE_BATCH first greedy tokens
 # b, hq, hkv, tq, tk, d, causal, window, softcap, q_offset, kv_offset:
 # tests/test_torch_kernels.py's ATTN_CASES, then head dims 256 and 80,
 # group 10, ragged tiles, a rolling decode cache with negative key
-# positions, three query rows (the kernel's few-rows path), and rows
-# (or a whole tile) with no live key
+# positions, three query rows, and rows (or a whole tile) with no live
+# key; then each route's own cases
 ATTN_CASES = [
     (2, 4, 2, 128, 128, 64, True, None, None, 0, 0),
     (1, 8, 4, 256, 256, 128, True, 64, None, 0, 0),
@@ -116,8 +125,22 @@ ATTN_CASES = [
     (2, 4, 2, 3, 100, 128, True, None, 50.0, 97, 0),
     (1, 2, 1, 8, 40, 32, True, None, None, 0, 5),
     (1, 2, 2, 70, 64, 64, True, None, None, 0, 100),
+    # bf16 takes the wgmma route: D 64, 128, 256, ragged Tq and Tk, window
+    # and softcap on, q_offset > 0
+    (2, 4, 2, 200, 333, 64, True, 100, 50.0, 133, 0),
+    (1, 8, 4, 200, 333, 128, True, 150, 30.0, 133, 0),
+    (2, 8, 4, 200, 333, 256, True, 96, 50.0, 133, 0),
+    # split-KV decode: group 10 over 32 splits of a full rolling cache;
+    # Tq 3 over a rolling cache with negative key positions (15 splits,
+    # 30 rows in 2 row blocks); a row with no live key in its one split;
+    # no live key at all (one empty split); D 80, group 16, Tq 4
+    (2, 10, 1, 1, 2048, 256, True, 2048, None, 2999, 952),
+    (1, 10, 1, 3, 2048, 128, True, 2048, 50.0, 1000, -1047),
+    (2, 8, 4, 3, 300, 64, True, None, None, 0, 1),
+    (1, 4, 2, 1, 100, 32, True, None, None, 0, 5),
+    (1, 16, 1, 4, 1000, 80, True, None, 30.0, 996, 0),
 ]
-DEAD_ROWS = {13: 5, 14: 70}     # ATTN_CASES index -> leading dead rows
+DEAD_ROWS = {13: 5, 14: 70, 20: 1, 21: 1}   # index -> leading dead rows
 RGLRU_CASES = [(2, 128, 64), (1, 300, 100), (3, 64, 512), (1, 17, 9),
                (4, 1, 2560)]
 MLSTM_TOL = 5e-4                # f32, as tests/test_mlstm_kernel.py
@@ -183,31 +206,67 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+PTXAS_SOURCES = ("attention.cu", "mlstm.cu")
+
+
 def build() -> float:
-    """Build the extension; meanwhile compile ``csrc/mlstm.cu`` alone
-    with ``-Xptxas -v`` and log what ptxas says of its kernels."""
+    """Build the extension; meanwhile compile each of ``PTXAS_SOURCES``
+    alone with ``-Xptxas -v`` (all at once) and log what ptxas says of
+    its kernels, then count the ``HGMMA`` (wgmma) instructions in each
+    attention kernel's SASS (``cuobjdump -sass``)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    obj = _build.BUILD_DIR.parent / "mlstm_ptxas.o"
-    obj.parent.mkdir(parents=True, exist_ok=True)
-    ptxas = subprocess.Popen(
-        [str(Path(CUDA_HOME) / "bin" / "nvcc"), *_build.CUDA_FLAGS,
-         "-std=c++17", "-Xptxas", "-v", "-c", str(_build.CSRC / "mlstm.cu"),
-         f"-I{_build.CSRC}", "-o", str(obj)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out_dir = _build.BUILD_DIR.parent
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
+    procs = {}
+    for src in PTXAS_SOURCES:
+        obj = out_dir / (Path(src).stem + "_ptxas.o")
+        procs[src] = (obj, subprocess.Popen(
+            [nvcc, *_build.CUDA_FLAGS, "-std=c++17", "-Xptxas", "-v", "-c",
+             str(_build.CSRC / src), f"-I{_build.CSRC}", "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports = {}
     try:
         _build.extension()
-        report, _ = ptxas.communicate(timeout=600)
+        for src, (_, proc) in procs.items():
+            reports[src], _ = proc.communicate(timeout=600)
     finally:
-        if ptxas.poll() is None:
-            ptxas.kill()
-            ptxas.wait()
-    check(ptxas.returncode == 0, f"nvcc -Xptxas -v mlstm.cu:\n{report}")
-    for line in report.splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill")):
-            log(f"mlstm.cu {line.strip()}")
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for src, (obj, proc) in procs.items():
+        check(proc.returncode == 0,
+              f"nvcc -Xptxas -v {src}:\n{reports[src]}")
+        injected = 0
+        for line in reports[src].splitlines():
+            if "C7519" in line:          # ptxas fenced a wgmma's registers
+                injected += 1
+            elif any(w in line for w in ("entry function", "registers",
+                                         "spill")):
+                log(f"{src} {line.strip()}")
+        if injected:
+            log(f"{src}: ptxas injected {injected} warpgroup.arrive fences "
+                "around wgmma register operands (C7519)")
+    obj = procs["attention.cu"][0]
+    sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"),
+                           "-sass", str(obj)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    hgmma: dict = {}
+    func = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :", 1)[1].strip()
+            hgmma[func] = 0
+        elif func is not None and "HGMMA" in line:
+            hgmma[func] += 1
+    for func, n in hgmma.items():
+        log(f"attention.cu SASS {func}: {n} HGMMA instructions")
+    check(any(n > 0 for f, n in hgmma.items() if "wgmma" in f),
+          "attention.cu: no HGMMA instruction in the wgmma prefill kernel")
     return time.perf_counter() - t0
 
 
@@ -216,20 +275,26 @@ def build() -> float:
 # ----------------------------------------------------------------------
 
 def time_ms(fn, runs: int = 10) -> float:
-    """Median of ``runs`` CUDA-event timings of ``fn()`` after a warm-up."""
+    """Median over ``runs`` CUDA-event timings, after a warm-up, of one
+    call of ``fn()``: each timing spans enough back-to-back calls (up to
+    100) to take about 2 ms, so that a short kernel's time is the
+    card's and not the host's enqueue."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
+
+    def once(n: int) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        return a.elapsed_time(b) / n
+
+    fn()
+    torch.cuda.synchronize()
+    n = max(1, min(100, int(2.0 / max(once(1), 1e-3))))
+    return statistics.median(once(n) for _ in range(runs))
 
 
 def bound_ms(nbytes: float, ops: float = 0.0,
@@ -858,6 +923,12 @@ def check_full_shapes_serving(counts: dict) -> list[dict]:
                                           None, 0, 0)),
         ("gemma2 prefill global, softcap off", (b, 8, 4, t, t, 256, True,
                                                 None, None, 0, 0)),
+        ("gemma2 decode global, softcap off", (b, 8, 4, 1, cache, 256, True,
+                                               None, None, pos, 0)),
+        ("gemma2 decode local, softcap off", (b, 8, 4, 1, 4096, 256, True,
+                                              4096, None, pos, pos - 4095)),
+        ("recurrentgemma decode local", (b, 10, 1, 1, 2048, 256, True, 2048,
+                                         None, pos, pos - 2047)),
     ]
     rows = []
     for label, case in shapes:
@@ -879,13 +950,16 @@ def check_full_shapes_serving(counts: dict) -> list[dict]:
         bound = bound_ms(nbytes, ops, BF16_OPS_PER_S)
         lib = None
         if kw["softcap"] is None:
-            # the one PyTorch call for the same function: SDPA, with
-            # the window as a boolean mask where there is one
+            # the one PyTorch call for the same function: SDPA, causal
+            # where the offsets are 0 and no window, else with a boolean
+            # mask of the live keys built outside the timed call
             mask = None
-            if kw["window"] is not None:
-                qp = torch.arange(tq, device="cuda")[:, None]
-                kp = torch.arange(tk, device="cuda")[None, :]
-                mask = (kp <= qp) & (kp > qp - kw["window"])
+            if kw["window"] is not None or kw["q_offset"] or kw["kv_offset"]:
+                mask = ref.attention_mask(tq, tk, causal=kw["causal"],
+                                          window=kw["window"],
+                                          q_offset=kw["q_offset"],
+                                          kv_offset=kw["kv_offset"],
+                                          device="cuda")
 
             def sdpa():
                 if mask is None:
@@ -899,9 +973,10 @@ def check_full_shapes_serving(counts: dict) -> list[dict]:
         row = _row("flash_attention", "csrc/attention.cu",
                    "src/repro/kernels/attention.py:104", counts, err, ms,
                    plain, bound, lib)
-        row["shape"] = f"{label}: {list(case)} bf16"
+        path = attention.route(bf, case[3], case[5])
+        row["shape"] = f"{label}: {list(case)} bf16, {path}"
         rows.append(row)
-        log(f"flash_attention {label} {list(case[:6])}: {ms:.3f} ms "
+        log(f"flash_attention {label} {list(case[:6])}, {path}: {ms:.3f} ms "
             f"({ops / ms / 1e9:.1f} TFLOP/s, bound {bound[0]:.3f} ms by "
             f"{bound[1]}); plain {plain:.3f} ms; library "
             f"{'none' if lib is None else f'{lib:.3f} ms'}; max err "

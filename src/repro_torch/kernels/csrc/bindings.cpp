@@ -79,6 +79,64 @@ void flash_attention(const at::Tensor& q, const at::Tensor& k,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void flash_attention_wgmma(const at::Tensor& q, const at::Tensor& k,
+                           const at::Tensor& v, const at::Tensor& out,
+                           bool causal, int64_t window, double softcap,
+                           int64_t q_offset, int64_t kv_offset,
+                           double scale) {
+  TORCH_CHECK(repro_torch::flash_wgmma_head_dim_ok(q.size(3)),
+              "flash_attention (wgmma): unsupported head dim ", q.size(3));
+  TORCH_CHECK(q.scalar_type() == at::kBFloat16,
+              "flash_attention (wgmma): needs bfloat16");
+  TORCH_CHECK(q.size(2) <= 65535LL * 128 && k.size(2) < (1LL << 31),
+              "flash_attention (wgmma): Tq must be at most 65535 x 128 "
+              "and Tk below 2^31");
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch(repro_torch::launch_flash_attention_wgmma(
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   q.size(0), q.size(1), k.size(1), q.size(2), k.size(2),
+                   q.size(3), causal ? 1 : 0, window,
+                   static_cast<float>(softcap), q_offset, kv_offset,
+                   static_cast<float>(scale),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "flash_attention (wgmma)");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void flash_decode(const at::Tensor& q, const at::Tensor& k,
+                  const at::Tensor& v, const at::Tensor& out,
+                  const at::Tensor& o_part, const at::Tensor& m_part,
+                  const at::Tensor& l_part, bool causal, int64_t window,
+                  double softcap, int64_t q_offset, int64_t kv_offset,
+                  double scale, int64_t j_lo, int64_t j_hi, int64_t per,
+                  int64_t splits) {
+  TORCH_CHECK(repro_torch::flash_attention_head_dim_ok(q.size(3)),
+              "flash_attention (decode): unsupported head dim ", q.size(3));
+  const int64_t rows = q.size(0) * q.size(1) * q.size(2);
+  TORCH_CHECK(splits > 0 && splits <= 12288,   // the combine's 48 KB
+              "flash_attention (decode): 1 to 12288 splits, got ", splits);
+  TORCH_CHECK(o_part.numel() == splits * rows * q.size(3) &&
+                  m_part.numel() == splits * rows &&
+                  l_part.numel() == splits * rows,
+              "flash_attention (decode): partials must hold splits x rows");
+  TORCH_CHECK(k.size(1) * repro_torch::decode_row_blocks(
+                              q.size(1), k.size(1), q.size(2)) <= 65535,
+              "flash_attention (decode): too many (KV head, row block) "
+              "pairs for the grid");
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch(repro_torch::launch_flash_decode(
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   o_part.data_ptr<float>(), m_part.data_ptr<float>(),
+                   l_part.data_ptr<float>(), q.size(0), q.size(1),
+                   k.size(1), q.size(2), k.size(2), q.size(3),
+                   causal ? 1 : 0, window, static_cast<float>(softcap),
+                   q_offset, kv_offset, static_cast<float>(scale), j_lo,
+                   j_hi, per, splits, dtype_code(q),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "flash_attention (decode)");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 void rglru_scan(const at::Tensor& x, const at::Tensor& a,
                 const at::Tensor& gx, const c10::optional<at::Tensor>& h0,
                 const at::Tensor& y, const at::Tensor& h_last) {
@@ -131,7 +189,14 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Per-row int8 dequantize (q, scale, out)");
   m.def("flash_attention", &flash_attention,
         "Flash attention forward (q, k, v, out, causal, window, softcap, "
-        "q_offset, kv_offset, scale)");
+        "q_offset, kv_offset, scale); the FMA route");
+  m.def("flash_attention_wgmma", &flash_attention_wgmma,
+        "Flash attention forward, bf16 on wgmma (q, k, v, out, causal, "
+        "window, softcap, q_offset, kv_offset, scale)");
+  m.def("flash_decode", &flash_decode,
+        "Split-KV decode attention (q, k, v, out, o_part, m_part, l_part, "
+        "causal, window, softcap, q_offset, kv_offset, scale, j_lo, j_hi, "
+        "per, splits)");
   m.def("rglru_scan", &rglru_scan,
         "RG-LRU scan (x, a, gx, h0 or None, y, h_last)");
   m.def("mlstm_chunkwise_shape_ok", &repro_torch::mlstm_chunkwise_shape_ok,

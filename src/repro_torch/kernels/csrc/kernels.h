@@ -44,9 +44,21 @@ void launch_chunk_dequantize(const int8_t* q, const float* scale,
 // Flash attention forward.  q (b, hq, tq, d), k and v (b, hkv, tk, d) and
 // out (b, hq, tq, d) are contiguous and share `dtype`; hq % hkv == 0 and
 // d is one of flash_attention_head_dim_ok's.  window < 0 means none and
-// softcap <= 0 means none.  Returns the error of the attribute call or
-// of the launch (cudaGetLastError), which the caller must check.
+// softcap <= 0 means none.  Each launcher returns the error of its
+// attribute call or of its launch (cudaGetLastError), which the caller
+// must check.  The wrapper picks the route:
+//   launch_flash_attention: f32 FMA on the CUDA cores, any dtype and d;
+//   launch_flash_attention_wgmma: bf16 on the tensor cores, d one of
+//     flash_wgmma_head_dim_ok's; q, k, v 16-byte aligned (TMA);
+//   launch_flash_decode: split-KV for a few query rows, any dtype and d.
+//     Split s covers keys [j_lo + s * per, min(j_lo + (s + 1) * per - 1,
+//     j_hi)], 1 <= splits <= 12288 (the combine keeps a weight a split
+//     in shared memory); o_part (splits, b * hq * tq, d), m_part and
+//     l_part (splits, b * hq * tq) are f32 scratch; the grid's y-extent
+//     is hkv * decode_row_blocks(hq, hkv, tq), at most 65535.
 bool flash_attention_head_dim_ok(int64_t d);
+bool flash_wgmma_head_dim_ok(int64_t d);
+int64_t decode_row_blocks(int64_t hq, int64_t hkv, int64_t tq);
 cudaError_t launch_flash_attention(const void* q, const void* k,
                                    const void* v, void* out, int64_t b,
                                    int64_t hq, int64_t hkv, int64_t tq,
@@ -55,6 +67,18 @@ cudaError_t launch_flash_attention(const void* q, const void* k,
                                    int64_t q_offset, int64_t kv_offset,
                                    float scale, int dtype,
                                    cudaStream_t stream);
+cudaError_t launch_flash_attention_wgmma(
+    const void* q, const void* k, const void* v, void* out, int64_t b,
+    int64_t hq, int64_t hkv, int64_t tq, int64_t tk, int64_t d, int causal,
+    int64_t window, float softcap, int64_t q_offset, int64_t kv_offset,
+    float scale, cudaStream_t stream);
+cudaError_t launch_flash_decode(
+    const void* q, const void* k, const void* v, void* out, float* o_part,
+    float* m_part, float* l_part, int64_t b, int64_t hq, int64_t hkv,
+    int64_t tq, int64_t tk, int64_t d, int causal, int64_t window,
+    float softcap, int64_t q_offset, int64_t kv_offset, float scale,
+    int64_t j_lo, int64_t j_hi, int64_t per, int64_t splits, int dtype,
+    cudaStream_t stream);
 
 // RG-LRU scan over x, a, gx (b, t, d) of `dtype`: y (b, t, d) of `dtype`
 // and h_last (b, d) f32, from h0 (b, d) f32 or zeros when h0 is null.

@@ -109,6 +109,51 @@ def attention_qchunk(q, k, v, *, causal=True, window=None, softcap=None,
     return out[:, :, :tq].to(q.dtype)
 
 
+def attention_split_decode(q, k, v, ranges, *, causal=True, window=None,
+                           softcap=None, q_offset=0, kv_offset=0,
+                           scale=None):
+    """Plain mirror of the split-KV decode kernel: for each key range
+    [lo, hi] of ``ranges`` (empty when hi < lo) the f32 partials o
+    (unnormalised), m (the live max, -1e30 with no live key) and l (0
+    with no live key); then the max-rescaled sum over the splits with
+    l > 0, and 0 for a row with no live key anywhere.  Tests and
+    ``chip_smoke.py`` hold it against the attention oracles."""
+    b, hq, tq, d = q.shape
+    _, hkv, tk, _ = k.shape
+    group = hq // hkv
+    sc = (d ** -0.5) if scale is None else scale
+    qg = q.float().reshape(b, hkv, group, tq, d)
+    mask = attention_mask(tq, tk, causal=causal, window=window,
+                          q_offset=q_offset, kv_offset=kv_offset,
+                          device=q.device)
+    os_, ms, ls = [], [], []
+    for lo, hi in ranges:
+        kf = k[:, :, lo:hi + 1].float()
+        vf = v[:, :, lo:hi + 1].float()
+        s = torch.einsum("bkgqd,bktd->bkgqt", qg, kf) * sc
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        live = mask[:, lo:hi + 1]
+        s = torch.where(live, s, NEG_INF)
+        m = torch.full(s.shape[:-1], NEG_INF, device=q.device)
+        if s.shape[-1]:
+            m = torch.maximum(m, s.amax(-1))
+        p = torch.where(live, torch.exp(s - m[..., None]), 0.0)
+        os_.append(torch.einsum("bkgqt,bktd->bkgqd", p, vf))
+        ms.append(m)
+        ls.append(p.sum(-1))
+    o, m, l = torch.stack(os_), torch.stack(ms), torch.stack(ls)
+    has = l > 0
+    m_max = torch.where(has, m, NEG_INF).amax(0)
+    w = torch.where(has, torch.exp(m - m_max), 0.0)
+    l_sum = (w * l).sum(0)
+    o_sum = (w[..., None] * o).sum(0)
+    out = torch.where(l_sum[..., None] > 0,
+                      o_sum / torch.where(l_sum > 0, l_sum, 1.0)[..., None],
+                      0.0)
+    return out.reshape(b, hq, tq, d).to(q.dtype)
+
+
 # ----------------------------------------------------------------------
 # RG-LRU oracle (diagonal gated linear recurrence, De et al. 2024)
 # ----------------------------------------------------------------------

@@ -428,22 +428,45 @@ def test_cuda_kernels_match_plain_versions(n, d):
                        ref.chunk_dequantize(q, s))
 
 
+# the kernel's routes beyond ATTN_CASES: bf16 wgmma prefill at D 64, 128
+# and 256 with ragged Tq and Tk, window, softcap and q_offset; split-KV
+# decode with group 10 over many splits, Tq 3 over a rolling cache with
+# negative key positions, a row with no live key, no live key at all,
+# and D 80 with group 16
+ROUTE_CASES = [
+    (2, 4, 2, 200, 333, 64, True, 100, 50.0, 133, 0),
+    (1, 8, 4, 200, 333, 128, True, 150, 30.0, 133, 0),
+    (2, 8, 4, 200, 333, 256, True, 96, 50.0, 133, 0),
+    (2, 10, 1, 1, 2048, 256, True, 2048, None, 2999, 952),
+    (1, 10, 1, 3, 2048, 128, True, 2048, 50.0, 1000, -1047),
+    (2, 8, 4, 3, 300, 64, True, None, None, 0, 1),
+    (1, 4, 2, 1, 100, 32, True, None, None, 0, 5),
+    (1, 16, 1, 4, 1000, 80, True, None, 30.0, 996, 0),
+]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", ATTN_TOL),
+                                       ("bfloat16", 1e-2)])
 @pytest.mark.parametrize(
-    "b,hq,hkv,tq,tk,d,causal,window,softcap,qoff,kvoff", ATTN_CASES)
+    "b,hq,hkv,tq,tk,d,causal,window,softcap,qoff,kvoff",
+    ATTN_CASES + ROUTE_CASES)
 def test_cuda_flash_attention_matches_plain_version(
-        b, hq, hkv, tq, tk, d, causal, window, softcap, qoff, kvoff):
+        b, hq, hkv, tq, tk, d, causal, window, softcap, qoff, kvoff, dtype,
+        tol):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    q, k, v = (torch.from_numpy(a).cuda()
+    q, k, v = (torch.from_numpy(a).cuda().to(getattr(torch, dtype))
                for a in _attn_case_inputs(b, hq, hkv, tq, tk, d, 3))
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff,
               kv_offset=kvoff)
     before = LAUNCHES["flash_attention"]
     got = ops.attention(q, k, v, impl="cuda", **kw)
     assert LAUNCHES["flash_attention"] == before + 1
-    torch.testing.assert_close(got, ref.attention_qchunk(q, k, v, **kw),
-                               atol=ATTN_TOL, rtol=ATTN_TOL)
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(),
+                               ref.attention_qchunk(q, k, v, **kw).float(),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
