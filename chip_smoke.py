@@ -13,8 +13,8 @@ and imports nothing of the JAX package:
    build it compiles ``csrc/attention.cu`` and ``csrc/mlstm.cu`` each
    alone with ``-Xptxas -v`` and prints their registers, shared memory
    and spills, then the number of ``HGMMA`` instructions in each
-   attention kernel's SASS (``cuobjdump``), which must be nonzero for
-   the wgmma prefill kernel;
+   kernel's SASS (``cuobjdump``), which must be nonzero for attention's
+   wgmma prefill kernel and mlstm's tensor-core kernels;
 3. holds every kernel against its plain PyTorch version on the card at
    small and odd shapes and edge cases: fedavg, quantize and dequantize
    (zero mass, a masked NaN row, bf16 updates, ties, an all-zero row,
@@ -29,7 +29,9 @@ and imports nothing of the JAX package:
    rglru_scan with and without h0, T = 1, f32 (2e-5) and bf16;
    mlstm_chunkwise on tests/test_mlstm_kernel.py's shapes plus head dims
    512 and 80, gates scaled x10, T = 1, the layer's (B, T, H, dh) views,
-   f32 (5e-4 on h, C, n and m) and bf16 (3e-2), all finite;
+   and cases of each route (the tensor-core route at dh 512, 256, 96, 64
+   and 32, chunk 64 and 128, one chunk and 2048 steps), f32 (5e-4 on h,
+   C, n and m) and bf16 (3e-2), all finite;
 4. the main paths, each with the launch counters set to 0 just before
    it and read just after:
    a. training: the train driver for 4 uncompressed steps of qwen3-1.7b
@@ -58,11 +60,13 @@ and imports nothing of the JAX package:
    the same function (``wn @ updates`` for fedavg, ``torch.mul`` for
    dequantize, SDPA for attention without softcap, with a boolean mask
    of the live keys where the offsets or the window need one; none for
-   quantize, softcapped attention, rglru or mlstm); each attention row
-   names its route.  The bound is the larger of
+   quantize, softcapped attention, rglru or mlstm); each attention and
+   mlstm row names its route, and the mlstm row's log gives the device
+   time of each of its kernels (``torch.profiler``).  The bound is the larger of
    the bytes over the HBM rate and the operations over the card's rate
-   for their type (f32 for the aggregation kernels, rglru and mlstm,
-   the bf16 tensor cores for attention);
+   for their type (f32 for the aggregation kernels and rglru, the bf16
+   tensor cores for attention, the TF32 tensor cores for mlstm, whose
+   line also gives its f32 bound and the 3xTF32 split's ceiling);
 7. checks the steps against a reference on a small input: the reduced
    qwen3 config trained 2 compressed steps, and reduced gemma2-2b and
    recurrentgemma-2b (40-token prompts) and xlstm-350m (200 tokens, so
@@ -147,7 +151,10 @@ MLSTM_TOL = 5e-4                # f32, as tests/test_mlstm_kernel.py
 MLSTM_BF16_TOL = 3e-2
 # b, h, t, dh, chunk, gate scale, dtype, layout: tests/test_mlstm_kernel.py's
 # shapes, then head dims 512 and 80 (ragged slices and row blocks), gates
-# x10, T = 1, the layer's transposed (B, T, H, dh) views, chunk 100, bf16
+# x10, T = 1, the layer's transposed (B, T, H, dh) views, chunk 100, bf16;
+# then the tensor-core route's own: dh 512, 256, 96, 64 and 32, chunk 64
+# and 128, gates x10, both layouts, bf16, one chunk, and T = 2048 (16
+# chunks of 128, 32 of 64) for the carried state
 MLSTM_CASES = [
     (2, 4, 64, 16, 16, 1.0, "float32", "bhtd"),
     (1, 2, 128, 32, 32, 1.0, "float32", "bhtd"),
@@ -161,6 +168,14 @@ MLSTM_CASES = [
     (1, 2, 200, 48, 100, 1.0, "float32", "bthd"),
     (1, 2, 64, 32, 32, 1.0, "bfloat16", "bhtd"),
     (2, 4, 256, 512, 128, 1.0, "bfloat16", "bthd"),
+    (2, 4, 2048, 512, 128, 1.0, "float32", "bthd"),
+    (1, 2, 2048, 512, 64, 10.0, "float32", "bhtd"),
+    (2, 2, 256, 256, 64, 10.0, "float32", "bthd"),
+    (1, 3, 384, 256, 128, 1.0, "bfloat16", "bthd"),
+    (1, 2, 512, 96, 128, 1.0, "float32", "bhtd"),
+    (1, 3, 128, 64, 128, 10.0, "float32", "bthd"),
+    (2, 2, 2048, 32, 128, 1.0, "float32", "bthd"),
+    (2, 2, 64, 32, 64, 10.0, "bfloat16", "bhtd"),
 ]
 XLSTM_SMALL_PROMPT = 200        # pads the reduced model's last mLSTM chunk
 TF32_OPS_PER_S = 494e12         # TF32 tensor cores, dense, same sheet
@@ -213,7 +228,9 @@ def build() -> float:
     """Build the extension; meanwhile compile each of ``PTXAS_SOURCES``
     alone with ``-Xptxas -v`` (all at once) and log what ptxas says of
     its kernels, then count the ``HGMMA`` (wgmma) instructions in each
-    attention kernel's SASS (``cuobjdump -sass``)."""
+    kernel's SASS (``cuobjdump -sass``): nonzero in attention's wgmma
+    prefill kernel and in every instance of mlstm's tensor-core
+    kernels."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from repro_torch.kernels import _build
@@ -251,22 +268,28 @@ def build() -> float:
         if injected:
             log(f"{src}: ptxas injected {injected} warpgroup.arrive fences "
                 "around wgmma register operands (C7519)")
-    obj = procs["attention.cu"][0]
-    sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"),
-                           "-sass", str(obj)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
     hgmma: dict = {}
-    func = None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            func = line.split("Function :", 1)[1].strip()
-            hgmma[func] = 0
-        elif func is not None and "HGMMA" in line:
-            hgmma[func] += 1
-    for func, n in hgmma.items():
-        log(f"attention.cu SASS {func}: {n} HGMMA instructions")
-    check(any(n > 0 for f, n in hgmma.items() if "wgmma" in f),
+    for src, (obj, _) in procs.items():
+        sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"),
+                               "-sass", str(obj)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        func = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                func = line.split("Function :", 1)[1].strip()
+                hgmma[(src, func)] = 0
+            elif func is not None and "HGMMA" in line:
+                hgmma[(src, func)] += 1
+    for (src, func), n in hgmma.items():
+        log(f"{src} SASS {func}: {n} HGMMA instructions")
+    check(any(n > 0 for (src, f), n in hgmma.items()
+              if src == "attention.cu" and "wgmma" in f),
           "attention.cu: no HGMMA instruction in the wgmma prefill kernel")
+    for part in ("mlstm_intra", "mlstm_inter"):
+        tc = [n for (src, f), n in hgmma.items()
+              if src == "mlstm.cu" and part in f]
+        check(bool(tc) and all(n > 0 for n in tc),
+              f"mlstm.cu: a {part} kernel without HGMMA instructions: {tc}")
     return time.perf_counter() - t0
 
 
@@ -306,6 +329,31 @@ def bound_ms(nbytes: float, ops: float = 0.0,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms_by_kernel(fn, match: str, calls: int = 3) -> dict:
+    """Mean device milliseconds per call of ``fn`` for each CUDA kernel
+    whose name contains ``match``, from ``torch.profiler`` over
+    ``calls`` calls after a warm-up; empty if the trace has no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        dt = (getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0))
+        if match in e.key and dt:
+            name = e.key.split("(anonymous namespace)::")[-1].split("<")[0]
+            out[name] = out.get(name, 0.0) + dt / calls / 1e3
+    return out
 
 
 def free_cuda() -> None:
@@ -494,15 +542,18 @@ def check_small_mlstm() -> None:
     from repro_torch.kernels import mlstm, ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(31)
+    routes: dict = {}
     for b, h, t, dh, chunk, gsc, dtype, layout in MLSTM_CASES:
         dt = getattr(torch, dtype)
+        path = mlstm.route(dt, dh, chunk)
+        routes[path] = routes.get(path, 0) + 1
         q, k, v, i, f = _mlstm_inputs(b, h, t, dh, gsc, dt, layout, gen)
         got = mlstm.mlstm_chunkwise(q, k, v, i, f, chunk=chunk)
         torch.cuda.synchronize()
         want = ref.mlstm_chunkwise(q.float(), k.float(), v.float(), i, f,
                                    chunk=chunk)
         what = (f"mlstm_chunkwise ({b}, {h}, {t}, {dh}) chunk {chunk} gates "
-                f"x{gsc} {dtype} {layout}")
+                f"x{gsc} {dtype} {layout}, {path}")
         check(got[0].dtype == dt and got[0].shape == q.shape
               and all(x.dtype == torch.float32 for x in got[1:]),
               f"{what}: dtypes {[x.dtype for x in got]}")
@@ -511,7 +562,9 @@ def check_small_mlstm() -> None:
         tol = MLSTM_TOL if dt == torch.float32 else MLSTM_BF16_TOL
         for name, g, w in zip(("h", "C", "n", "m"), got, want):
             _close_err(g, w, tol, tol, f"{what} {name}")
-    log(f"small mlstm checks passed ({len(MLSTM_CASES)} shapes: h, C, n, m)")
+    check(set(routes) == {"tc", "fma"}, f"mlstm routes taken: {routes}")
+    log(f"small mlstm checks passed ({len(MLSTM_CASES)} shapes: h, C, n, m;"
+        f" routes {routes})")
 
 
 def check_full_shapes(counts: dict) -> list[dict]:
@@ -1034,8 +1087,9 @@ def check_full_shape_mlstm(counts: dict) -> list[dict]:
     want = ref.mlstm_chunkwise(q, k, v, i, f, chunk=chunk)
     check(all(bool(torch.isfinite(x).all()) for x in got),
           "mlstm_chunkwise full shape: non-finite output")
-    err = max(_close_err(g, w, MLSTM_TOL, MLSTM_TOL, f"mlstm full {name}")
-              for name, g, w in zip(("h", "C", "n", "m"), got, want))
+    errs = {name: _close_err(g, w, MLSTM_TOL, MLSTM_TOL, f"mlstm full {name}")
+            for name, g, w in zip(("h", "C", "n", "m"), got, want)}
+    err = max(errs.values())
     del got, want
     ms = time_ms(lambda: mlstm.mlstm_chunkwise(q, k, v, i, f, chunk=chunk))
     plain = time_ms(lambda: ref.mlstm_chunkwise(q, k, v, i, f, chunk=chunk),
@@ -1049,17 +1103,33 @@ def check_full_shape_mlstm(counts: dict) -> list[dict]:
                       for lc in lcs)
     nbytes = 4.0 * (4 * b * h * t * dh + 2 * b * h * t
                     + b * h * (dh * dh + dh + 1))
-    bound = bound_ms(nbytes, ops)
-    tf32 = ops / TF32_OPS_PER_S * 1e3
+    # the least time: the operations on the TF32 tensor cores; beside it
+    # the f32 rate, the 3xTF32 split's own ceiling (three TF32 products
+    # a product) and the bytes with H's f32 round trip between passes
+    path = mlstm.route(q.dtype, dh, chunk)
+    bound = bound_ms(nbytes, ops, TF32_OPS_PER_S)
+    f32_ms = bound_ms(nbytes, ops)[0]
+    split_ms = 3 * ops / TF32_OPS_PER_S * 1e3
+    rt_bytes = nbytes + 2 * 4.0 * b * h * t * dh
     row = _row("mlstm_chunkwise", "csrc/mlstm.cu",
                "src/repro/kernels/mlstm.py:102", counts, err, ms, plain,
                bound, None)
-    row["shape"] = f"xlstm-350m prefill: ({b}, {h}, {t}, {dh}) f32, chunk {chunk}"
-    log(f"mlstm_chunkwise ({b}, {h}, {t}, {dh}) f32 chunk {chunk}: {ms:.3f} ms "
-        f"({ops / ms / 1e9:.1f} TFLOP/s, bound {bound[0]:.3f} ms by "
-        f"{bound[1]}; the same operations on the TF32 tensor cores "
-        f"{tf32:.3f} ms); plain {plain:.3f} ms; no library call; max err "
-        f"{err:.3e}")
+    row["shape"] = (f"xlstm-350m prefill: ({b}, {h}, {t}, {dh}) f32, chunk "
+                    f"{chunk}, {path}")
+    passes = device_ms_by_kernel(
+        lambda: mlstm.mlstm_chunkwise(q, k, v, i, f, chunk=chunk), "mlstm")
+    log("mlstm_chunkwise device time by kernel (torch.profiler, mean of 3 "
+        "calls): " + ("; ".join(f"{name} {ms_:.3f} ms"
+                                for name, ms_ in passes.items())
+                      or "not measured (no device time in the trace)"))
+    log(f"mlstm_chunkwise ({b}, {h}, {t}, {dh}) f32 chunk {chunk}, {path}: "
+        f"{ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s of the function's "
+        f"{ops / 1e9:.1f} GFLOP); bound {bound[0]:.3f} ms by {bound[1]} "
+        f"on the TF32 tensor cores (f32 bound {f32_ms:.3f} ms, 3xTF32 "
+        f"ceiling {split_ms:.3f} ms, bytes with H's round trip "
+        f"{rt_bytes / 1e9:.3f} GB = {rt_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms); plain {plain:.3f} ms; no library call; max err {err:.3e} ("
+        + ", ".join(f"{name} {e:.3e}" for name, e in errs.items()) + ")")
     del q, k, v, i, f
     free_cuda()
     return [row]

@@ -176,6 +176,40 @@ void mlstm_chunkwise(const at::Tensor& q, const at::Tensor& k,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void mlstm_chunkwise_tc(const at::Tensor& q, const at::Tensor& k,
+                        const at::Tensor& v, const at::Tensor& i,
+                        const at::Tensor& f, const at::Tensor& h,
+                        const at::Tensor& hbuf, const at::Tensor& c,
+                        const at::Tensor& n, const at::Tensor& m,
+                        const at::Tensor& scratch, int64_t chunk) {
+  TORCH_CHECK(k.strides().equals(q.strides()) &&
+                  v.strides().equals(q.strides()) &&
+                  h.strides().equals(q.strides()) &&
+                  hbuf.strides().equals(q.strides()) && q.stride(3) == 1,
+              "mlstm_chunkwise (tc): q, k, v, h and hbuf must share "
+              "strides with a unit last stride");
+  TORCH_CHECK(f.strides().equals(i.strides()),
+              "mlstm_chunkwise (tc): i and f must share strides");
+  TORCH_CHECK(repro_torch::mlstm_tc_shape_ok(q.size(3), chunk),
+              "mlstm_chunkwise (tc): unsupported head dim ", q.size(3),
+              " with chunk ", chunk);
+  TORCH_CHECK(scratch.numel() >= repro_torch::mlstm_tc_scratch_floats(
+                                     q.size(0), q.size(1), q.size(2), chunk),
+              "mlstm_chunkwise (tc): scratch too small");
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch(repro_torch::launch_mlstm_chunkwise_tc(
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   i.data_ptr<float>(), f.data_ptr<float>(), h.data_ptr(),
+                   hbuf.data_ptr<float>(), c.data_ptr<float>(),
+                   n.data_ptr<float>(), m.data_ptr<float>(),
+                   scratch.data_ptr<float>(), q.size(0), q.size(1),
+                   q.size(2), q.size(3), chunk, q.stride(0), q.stride(1),
+                   q.stride(2), i.stride(0), i.stride(1), i.stride(2),
+                   dtype_code(q), c10::cuda::getCurrentCUDAStream().stream()),
+               "mlstm_chunkwise (tc)");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -203,5 +237,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Whether mlstm_chunkwise takes head dim dh and chunk length chunk");
   m.def("mlstm_chunkwise", &mlstm_chunkwise,
         "Chunkwise mLSTM from a zero state (q, k, v, i, f, h, C, n, m, "
+        "chunk); the FMA route");
+  m.def("mlstm_tc_scratch_floats", &repro_torch::mlstm_tc_scratch_floats,
+        "Floats of the tensor-core route's gate scratch for (B, H, T, "
         "chunk)");
+  m.def("mlstm_chunkwise_tc", &mlstm_chunkwise_tc,
+        "Chunkwise mLSTM on TF32 wgmma (q, k, v, i, f, h, hbuf, C, n, m, "
+        "scratch, chunk)");
 }

@@ -106,4 +106,23 @@ cudaError_t launch_mlstm_chunkwise(const void* q, const void* k,
                                    int64_t gb, int64_t gh, int64_t gt,
                                    int dtype, cudaStream_t stream);
 
+
+// The tensor-core route of the same function (3xTF32 wgmma, three
+// launches: gates, intra-chunk, inter-chunk).  dtype f32 or bf16; chunk
+// 64 or 128 and dh a multiple of 32 from 32 to 512
+// (mlstm_tc_shape_ok); q, k, v and hbuf 16-byte aligned, their strides
+// multiples of 16 bytes (TMA).  `hbuf` is f32 with h's
+// strides: h itself when h is f32, else scratch; `scratch` holds
+// mlstm_tc_scratch_floats(b, hh, t, chunk) floats.  Writes h, C, n, m
+// as launch_mlstm_chunkwise does and returns the first launch error.
+bool mlstm_tc_shape_ok(int64_t dh, int64_t chunk);
+int64_t mlstm_tc_scratch_floats(int64_t b, int64_t hh, int64_t t,
+                                int64_t chunk);
+cudaError_t launch_mlstm_chunkwise_tc(
+    const void* q, const void* k, const void* v, const float* i,
+    const float* f, void* h, float* hbuf, float* c, float* n, float* m,
+    float* scratch, int64_t b, int64_t hh, int64_t t, int64_t dh,
+    int64_t chunk, int64_t sb, int64_t sh, int64_t st, int64_t gb,
+    int64_t gh, int64_t gt, int dtype, cudaStream_t stream);
+
 }  // namespace repro_torch

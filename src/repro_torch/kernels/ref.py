@@ -308,6 +308,85 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, *, chunk: int = 128):
     return hs.transpose(1, 2).to(q.dtype), C, n, m
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to tf32's 10 mantissa bits, to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does (finite inputs)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the tensor-core route computes it: each operand split
+    into hi = tf32(x) and lo = tf32(x - hi), then hi hi + hi lo + lo hi
+    with f32 accumulation (the lo lo term is dropped)."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_round(a.float() - ah), tf32_round(b.float() - bh)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def mlstm_chunkwise_split(q, k, v, i_pre, f_pre, *, chunk: int = 128,
+                          matmul=torch.matmul):
+    """``mlstm_chunkwise`` computed as the tensor-core route's three
+    passes compute it; every matrix product goes through ``matmul``
+    (``matmul_3xtf32`` emulates the route's products).  Layout and
+    results as ``mlstm_chunkwise``; T a multiple of ``chunk``.
+
+    a. gates, per (b, h), chunk by chunk (the carried m0 only):
+       M_j = max(m0, cummax(i - A)_j), c_j = e^{m0 - M_j},
+       wL_s = e^{gia_s - M_{L-1}}, decay = e^{m0 - M_{L-1}},
+       m = A_{L-1} + M_{L-1};
+    b. intra-chunk, per (b, h, chunk), independent of the state:
+       S = q k^T, P = W o S (W[j, s] = e^{gia_s - M_j}, s <= j),
+       rs_j = sum_s P[j, s], H = P v;
+    c. inter-chunk, per (b, h), walking the chunks with C and n:
+       h_j = (c_j (C q_j) + H_j) / max(|c_j (n . q_j) + rs_j|, 1),
+       C <- decay C + (wL o v)^T k,  n <- decay n + sum_s wL_s k_s."""
+    b, hh, t, dh = q.shape
+    L = chunk
+    nc = t // L
+    f32 = lambda x: x.float().reshape(b, hh, nc, L, *x.shape[3:])  # noqa: E731
+    qc, kc, vc, ic, fc = f32(q), f32(k), f32(v), f32(i_pre), f32(f_pre)
+    # a. gates
+    A = torch.cumsum(fc, dim=-1)
+    gia = ic - A                                         # (b, h, nc, L)
+    g = torch.cummax(gia, dim=-1).values
+    m0 = torch.full((b, hh), NEG_INF, dtype=torch.float32, device=q.device)
+    Ms, m0s = [], []
+    for c in range(nc):
+        m0s.append(m0)
+        Ms.append(torch.maximum(m0[..., None], g[:, :, c]))
+        m0 = A[:, :, c, -1] + Ms[-1][..., -1]
+    M = torch.stack(Ms, dim=2)                           # (b, h, nc, L)
+    m_prev = torch.stack(m0s, dim=2)                     # (b, h, nc)
+    c_j = torch.exp(m_prev[..., None] - M)
+    wL = torch.exp(gia - M[..., -1:])
+    decay = torch.exp(m_prev - M[..., -1])
+    # b. intra-chunk
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
+    W = torch.where(mask, torch.exp(gia[..., None, :] - M[..., :, None]), 0.0)
+    P = W * matmul(qc, kc.transpose(-1, -2))             # (b, h, nc, L, L)
+    rs = P.sum(-1)
+    H = matmul(P, vc)                                    # (b, h, nc, L, dh)
+    # c. inter-chunk
+    C = torch.zeros((b, hh, dh, dh), dtype=torch.float32, device=q.device)
+    n = torch.zeros((b, hh, dh), dtype=torch.float32, device=q.device)
+    hs = []
+    for c in range(nc):
+        qj = qc[:, :, c]
+        Y = matmul(qj, C.transpose(-1, -2))              # C0 q_j, (b,h,L,dh)
+        qn = (qj * n[:, :, None, :]).sum(-1)
+        cj = c_j[:, :, c]
+        den = torch.clamp(torch.abs(cj * qn + rs[:, :, c]), min=1.0)
+        hs.append((cj[..., None] * Y + H[:, :, c]) / den[..., None])
+        wv = wL[:, :, c, :, None] * vc[:, :, c]          # (b, h, L, dh)
+        C = decay[:, :, c, None, None] * C + matmul(wv.transpose(-1, -2),
+                                                     kc[:, :, c])
+        n = decay[:, :, c, None] * n + (wL[:, :, c, :, None]
+                                        * kc[:, :, c]).sum(-2)
+    h = torch.cat(hs, dim=2).to(q.dtype)
+    return h, C, n, m0
+
+
 def mlstm_step(state, inputs):
     """One mLSTM cell step (stabilised exponential gating); port of
     ``repro/models/layers.py::_mlstm_step``.  state: (C (B, H, dh, dh),

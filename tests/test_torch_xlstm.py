@@ -370,16 +370,37 @@ def test_xlstm_fl_train_step_vs_jax():
 # ----------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,t,dh,chunk,dtype", [
-    (2, 4, 64, 16, 16, "float32"), (1, 2, 256, 512, 128, "float32"),
-    (2, 3, 160, 80, 32, "float32"), (1, 2, 64, 32, 32, "bfloat16")])
-def test_cuda_mlstm_matches_plain_version(b, h, t, dh, chunk, dtype):
+@pytest.mark.parametrize("b,h,t,dh,chunk,dtype,gsc,layout", [
+    # the FMA route
+    (2, 4, 64, 16, 16, "float32", 1.0, "bhtd"),
+    (2, 3, 160, 80, 32, "float32", 1.0, "bhtd"),
+    (1, 2, 64, 32, 32, "bfloat16", 1.0, "bhtd"),
+    # the tensor-core route: dh 512, 256, 96, 64 and 32, chunk 64 and
+    # 128, gates x10, the layer's (B, T, H, dh) views, bf16, one chunk,
+    # T = 2048
+    (1, 2, 256, 512, 128, "float32", 1.0, "bhtd"),
+    (1, 4, 256, 512, 128, "float32", 10.0, "bthd"),
+    (2, 4, 2048, 512, 128, "float32", 1.0, "bthd"),
+    (2, 2, 256, 256, 64, "float32", 10.0, "bthd"),
+    (1, 2, 512, 96, 128, "float32", 1.0, "bhtd"),
+    (1, 3, 128, 64, 128, "float32", 10.0, "bhtd"),
+    (2, 2, 2048, 32, 128, "float32", 1.0, "bthd"),
+    (2, 4, 256, 512, 128, "bfloat16", 1.0, "bthd"),
+    (2, 2, 64, 32, 64, "bfloat16", 10.0, "bhtd")])
+def test_cuda_mlstm_matches_plain_version(b, h, t, dh, chunk, dtype, gsc,
+                                          layout):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     dt = getattr(torch, dtype)
-    q, k, v, ip, fp = (torch.from_numpy(a).cuda()
-                       for a in _mlstm_inputs(b, h, t, dh, 1))
+    arrs = _mlstm_inputs(b, h, t, dh, 1, gsc)
+    if layout == "bthd":   # transposed views of (B, T, H, ...) tensors
+        arrs = [np.ascontiguousarray(np.swapaxes(a, 1, 2)) for a in arrs]
+    q, k, v, ip, fp = (torch.from_numpy(a).cuda() for a in arrs)
+    if layout == "bthd":
+        q, k, v, ip, fp = (x.transpose(1, 2) for x in (q, k, v, ip, fp))
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    want_route = "tc" if chunk in (64, 128) and dh % 32 == 0 else "fma"
+    assert kmlstm.route(dt, dh, chunk) == want_route
     before = LAUNCHES["mlstm_chunkwise"]
     got = ops.mlstm(q, k, v, ip, fp, chunk=chunk, impl="cuda")
     assert LAUNCHES["mlstm_chunkwise"] == before + 1
