@@ -7,48 +7,69 @@ a checkpoint written by the JAX package loads here and back:
 and dtype name.  Leaves are numbered in ``jax.tree_util`` order
 (``repro_torch.tree``), so the two packages agree on which array is
 which.  Writes are atomic (tmp + rename) and ``keep`` bounds disk use.
+``restore_or_init`` is the one entry point a launcher calls on
+(re)start, as in the reference.
 """
 from __future__ import annotations
 
 import json
 import os
 import tempfile
+from collections.abc import Callable
 
 import numpy as np
 import torch
 
 from repro_torch.tree import flatten, unflatten
 
-# dtype names as numpy (and ml_dtypes, for bfloat16) spell them
+# every dtype both packages can spell, named as numpy (and ml_dtypes,
+# for bfloat16 and the float8 types) spells it
 _TORCH_DTYPES = {
     "float32": torch.float32, "float64": torch.float64,
     "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2,
+    "float8_e4m3fnuz": torch.float8_e4m3fnuz,
+    "float8_e5m2fnuz": torch.float8_e5m2fnuz,
     "int64": torch.int64, "int32": torch.int32, "int16": torch.int16,
-    "int8": torch.int8, "uint8": torch.uint8, "bool": torch.bool,
+    "int8": torch.int8, "uint64": torch.uint64, "uint32": torch.uint32,
+    "uint16": torch.uint16, "uint8": torch.uint8, "bool": torch.bool,
 }
 _NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
+# dtypes that go to and from numpy bytes through a signed integer view
+# of the same width (numpy has no bfloat16 or float8 of its own)
+_VIEWS = {torch.bfloat16: torch.int16, torch.uint16: torch.int16,
+          torch.uint32: torch.int32, torch.uint64: torch.int64,
+          torch.float8_e4m3fn: torch.int8, torch.float8_e5m2: torch.int8,
+          torch.float8_e4m3fnuz: torch.int8,
+          torch.float8_e5m2fnuz: torch.int8}
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    if name not in _TORCH_DTYPES:
+        raise ValueError(f"checkpoint leaf of dtype {name!r}: the port "
+                         f"knows {sorted(_TORCH_DTYPES)}")
+    return _TORCH_DTYPES[name]
 
 
 def _leaf_bytes(x) -> tuple[bytes, list, str]:
     if isinstance(x, torch.Tensor):
         t = x.detach().cpu().contiguous()
+        if t.dtype not in _NAMES:
+            raise ValueError(f"checkpoint leaf of dtype {t.dtype}: the "
+                             f"port saves {sorted(_TORCH_DTYPES)}")
         name = _NAMES[t.dtype]
-        if t.dtype == torch.bfloat16:
-            t = t.view(torch.int16)
+        t = t.view(_VIEWS.get(t.dtype, t.dtype))
         return t.numpy().tobytes(), list(x.shape), name
     a = np.asarray(x)
     return a.tobytes(), list(a.shape), str(a.dtype)
 
 
 def _leaf_tensor(buf: np.ndarray, lm: dict) -> torch.Tensor:
-    dt = _TORCH_DTYPES[lm["dtype"]]
-    raw = buf.tobytes()
-    if dt == torch.bfloat16:
-        t = torch.from_numpy(np.frombuffer(raw, np.int16).copy())
-        t = t.view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.frombuffer(raw, np.dtype(lm["dtype"])).copy())
-    return t.reshape(lm["shape"])
+    dt = _torch_dtype(lm["dtype"])
+    view = _VIEWS.get(dt, dt)
+    t = torch.from_numpy(np.frombuffer(buf.tobytes(),
+                                       np.dtype(_NAMES[view])).copy())
+    return t.view(dt).reshape(lm["shape"])
 
 
 def save_checkpoint(ckpt_dir: str, round_idx: int, tree, *,
@@ -124,3 +145,22 @@ def load_checkpoint(ckpt_dir: str, round_idx: int, like_tree):
            .reshape(l.shape)
            for buf, lm, l in zip(raw, manifest["leaves"], like_leaves)]
     return unflatten(treedef, out), manifest["meta"]
+
+
+def restore_or_init(ckpt_dir: str, init_fn: Callable[[], tuple], *,
+                    like_fn: Callable | None = None):
+    """Resume from the latest round if one exists, else initialise.
+
+    ``init_fn() -> (tree, meta)``.  Returns ``(tree, meta,
+    start_round)``: ``init_fn``'s tree and meta and round 0 when
+    ``ckpt_dir`` holds no checkpoint, else round r's tree (cast into the
+    structure of ``init_fn``'s), its meta and r + 1.  ``like_fn`` is
+    accepted for the reference's signature, which ignores it too.
+    """
+    r = latest_round(ckpt_dir)
+    if r is None:
+        tree, meta = init_fn()
+        return tree, meta, 0
+    like, _ = init_fn()
+    tree, meta = load_checkpoint(ckpt_dir, r, like)
+    return tree, meta, r + 1

@@ -151,6 +151,27 @@ void rglru_scan(const at::Tensor& x, const at::Tensor& a,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void rglru_scan_chunked(const at::Tensor& x, const at::Tensor& a,
+                        const at::Tensor& gx,
+                        const c10::optional<at::Tensor>& h0,
+                        const at::Tensor& y, const at::Tensor& h_last,
+                        const at::Tensor& scratch) {
+  TORCH_CHECK(scratch.numel() >= repro_torch::rglru_scan_scratch_bytes(
+                                     x.size(0), x.size(1), x.size(2)),
+              "rglru_scan (scan): scratch must hold "
+              "rglru_scan_scratch_bytes(B, T, D) bytes");
+  const c10::cuda::CUDAGuard guard(x.device());
+  const float* h0p = h0.has_value() ? h0->data_ptr<float>() : nullptr;
+  check_launch(repro_torch::launch_rglru_scan_chunked(
+                   x.data_ptr(), a.data_ptr(), gx.data_ptr(), h0p,
+                   y.data_ptr(), h_last.data_ptr<float>(),
+                   scratch.data_ptr<uint8_t>(), x.size(0), x.size(1),
+                   x.size(2), dtype_code(x),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "rglru_scan (scan)");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 void mlstm_chunkwise(const at::Tensor& q, const at::Tensor& k,
                      const at::Tensor& v, const at::Tensor& i,
                      const at::Tensor& f, const at::Tensor& h,
@@ -232,7 +253,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "causal, window, softcap, q_offset, kv_offset, scale, j_lo, j_hi, "
         "per, splits)");
   m.def("rglru_scan", &rglru_scan,
-        "RG-LRU scan (x, a, gx, h0 or None, y, h_last)");
+        "RG-LRU scan, one thread per channel (x, a, gx, h0 or None, y, "
+        "h_last); the seq route");
+  m.def("rglru_scan_scratch_bytes", &repro_torch::rglru_scan_scratch_bytes,
+        "Bytes of the scan route's look-back scratch for (B, T, D)");
+  m.def("rglru_scan_chunked", &rglru_scan_chunked,
+        "RG-LRU chunked scan with decoupled look-back (x, a, gx, h0 or "
+        "None, y, h_last, scratch); the scan route");
   m.def("mlstm_chunkwise_shape_ok", &repro_torch::mlstm_chunkwise_shape_ok,
         "Whether mlstm_chunkwise takes head dim dh and chunk length chunk");
   m.def("mlstm_chunkwise", &mlstm_chunkwise,

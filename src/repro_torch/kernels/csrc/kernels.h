@@ -80,13 +80,25 @@ cudaError_t launch_flash_decode(
     int64_t j_lo, int64_t j_hi, int64_t per, int64_t splits, int dtype,
     cudaStream_t stream);
 
-// RG-LRU scan over x, a, gx (b, t, d) of `dtype`: y (b, t, d) of `dtype`
-// and h_last (b, d) f32, from h0 (b, d) f32 or zeros when h0 is null.
-// Returns the launch's error (cudaGetLastError).
+// RG-LRU scan over x, a, gx (b, t, d) of `dtype`, contiguous: y (b, t, d)
+// of `dtype` and h_last (b, d) f32, from h0 (b, d) f32 or zeros when h0
+// is null.  Each returns the error of its attribute call, memset or
+// launch (cudaGetLastError).  Two routes:
+//   launch_rglru_scan: "seq", one thread per channel walks all of T;
+//   launch_rglru_scan_chunked: "scan", one CTA per (b, chunk of T, 128
+//     channels) with decoupled look-back, chunks of 64; `scratch`
+//     holds rglru_scan_scratch_bytes(b, t, d) bytes, 16-byte
+//     aligned, which the launcher partly zeroes on the stream first.
 cudaError_t launch_rglru_scan(const void* x, const void* a, const void* gx,
                               const float* h0, void* y, float* h_last,
                               int64_t b, int64_t t, int64_t d, int dtype,
                               cudaStream_t stream);
+int64_t rglru_scan_scratch_bytes(int64_t b, int64_t t, int64_t d);
+cudaError_t launch_rglru_scan_chunked(const void* x, const void* a,
+                                      const void* gx, const float* h0,
+                                      void* y, float* h_last, void* scratch,
+                                      int64_t b, int64_t t, int64_t d,
+                                      int dtype, cudaStream_t stream);
 
 // Chunkwise mLSTM from a zero state (C = 0, n = 0, m = -1e30).  q, k, v
 // and h (b, hh, t, dh) of `dtype` are addressed through the element

@@ -182,6 +182,80 @@ def rglru(x: torch.Tensor, a: torch.Tensor, gate_x: torch.Tensor,
     return y.to(x.dtype), h
 
 
+RGLRU_SUBS = 4          # the scan route's sub-chunks a chunk (kSubs)
+
+
+def rglru_chunked(x: torch.Tensor, a: torch.Tensor, gate_x: torch.Tensor,
+                  h0: torch.Tensor | None = None, *, chunk: int,
+                  lookback: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """The same function as ``rglru`` in the association of the
+    ``rglru_scan`` kernel's "scan" route, the plain mirror the tests
+    hold against the reference.  T is cut into chunks of ``chunk``
+    rows, each into ``RGLRU_SUBS`` sub-chunks (a missing row of the
+    last chunk is a = 1 with a zero input term).  Each sub-chunk runs
+    from h = 0 to its aggregate (A = prod a, H = end state); a chunk's
+    aggregate folds its sub-chunks; a chunk's start state folds the
+    aggregates of up to ``lookback - 1`` chunks before it onto the
+    inclusive prefix A h_in + H of the chunk before those (chunk 0
+    starts at ``h0``), as the kernel's look-back does when it finds the
+    prefix that far back; each sub-chunk then rescans from its own
+    start state."""
+    b, t, d = x.shape
+    if t == 0:
+        return rglru(x, a, gate_x, h0)
+    xf, af, gx = x.float(), a.float(), gate_x.float()
+    inp = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * (gx * xf)
+    subs = RGLRU_SUBS
+    rows = chunk // subs
+    n = -(-t // chunk)
+    pad = n * chunk - t
+    af = torch.nn.functional.pad(af, (0, 0, 0, pad), value=1.0)
+    inp = torch.nn.functional.pad(inp, (0, 0, 0, pad))
+    af = af.reshape(b, n, subs, rows, d)
+    inp = inp.reshape(b, n, subs, rows, d)
+    # sub-chunk aggregates, (b, n, subs, d)
+    sa = torch.ones_like(af[:, :, :, 0])
+    sh = torch.zeros_like(sa)
+    for r in range(rows):
+        sh = af[:, :, :, r] * sh + inp[:, :, :, r]
+        sa = sa * af[:, :, :, r]
+    # chunk aggregates, (b, n, d)
+    ca = torch.ones_like(sa[:, :, 0])
+    ch = torch.zeros_like(ca)
+    for s in range(subs):
+        ch = sa[:, :, s] * ch + sh[:, :, s]
+        ca = sa[:, :, s] * ca
+    h_in: list = []
+    prefix: list = []
+    for c in range(n):
+        if c == 0:
+            hin = (torch.zeros((b, d), dtype=torch.float32, device=x.device)
+                   if h0 is None else h0.float())
+        else:
+            k = max(c - lookback, 0)
+            mul = torch.ones_like(ca[:, 0])
+            add = torch.zeros_like(mul)
+            for j in range(c - 1, k, -1):
+                add = mul * ch[:, j] + add
+                mul = mul * ca[:, j]
+            hin = mul * prefix[k] + add
+        h_in.append(hin)
+        prefix.append(ca[:, c] * hin + ch[:, c])
+    # each sub-chunk's start state, then the rescan
+    h = torch.stack(h_in, dim=1)
+    starts = []
+    for s in range(subs):
+        starts.append(h)
+        h = sa[:, :, s] * h + sh[:, :, s]
+    h = torch.stack(starts, dim=2)
+    ys = []
+    for r in range(rows):
+        h = af[:, :, :, r] * h + inp[:, :, :, r]
+        ys.append(h)
+    y = torch.stack(ys, dim=3).reshape(b, n * chunk, d)[:, :t]
+    return y.to(x.dtype), y[:, -1].clone()
+
+
 # ----------------------------------------------------------------------
 # Chunkwise mLSTM (xLSTM matrix memory, Beck et al. 2024)
 # ----------------------------------------------------------------------

@@ -469,8 +469,16 @@ def test_cuda_flash_attention_matches_plain_version(
                                atol=tol, rtol=tol)
 
 
+# the seq route's shapes, then the scan route's: T just under and at its
+# threshold, ragged last chunks with ragged D, D of 9 (rows not whole
+# 16-byte vectors) and many chunks
+RGLRU_CUDA_CASES = [(2, 128, 64), (1, 17, 9), (4, 1, 2560), (2, 255, 72),
+                    (2, 256, 72), (2, 1000, 200), (3, 777, 9),
+                    (1, 2048, 136)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,d", [(2, 128, 64), (1, 17, 9), (4, 1, 2560)])
+@pytest.mark.parametrize("b,t,d", RGLRU_CUDA_CASES)
 def test_cuda_rglru_scan_matches_plain_version(b, t, d):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
@@ -478,9 +486,12 @@ def test_cuda_rglru_scan_matches_plain_version(b, t, d):
     x, g = (torch.rand((b, t, d), generator=gen, device="cuda")
             for _ in range(2))
     a = 0.5 + 0.49 * torch.rand((b, t, d), generator=gen, device="cuda")
+    a[:, ::5] = 1.0
     h0 = torch.randn((b, d), generator=gen, device="cuda")
     for h in (None, h0):
+        before = LAUNCHES["rglru_scan"]
         y, ht = ops.rglru(x, a, g, h, impl="cuda")
+        assert LAUNCHES["rglru_scan"] == before + 1
         yr, hr = ref.rglru(x, a, g, h)
         torch.testing.assert_close(y, yr, atol=RGLRU_TOL, rtol=RGLRU_TOL)
         torch.testing.assert_close(ht, hr, atol=RGLRU_TOL, rtol=RGLRU_TOL)
