@@ -38,34 +38,44 @@ and imports nothing of the JAX package:
    it and read just after:
    a. training: the train driver for 4 uncompressed steps of qwen3-1.7b
       at full width and depth (P = 2, batch 8, seq 512), then 2
-      compressed steps of ``ElasticFLStep``; all losses finite, each
-      aggregation kernel launched;
+      compressed steps of ``ElasticFLStep``; then the same for
+      granite-moe-1b-a400m (moe layers, an f32 router among bf16
+      leaves), 3 driver steps and 1 compressed step; all losses finite,
+      each aggregation kernel launched on each path, the parameter
+      count and the leaves' dtypes unchanged; prints step seconds and
+      peak memory;
    b. serving: ``launch/serve.py`` for gemma2-2b, recurrentgemma-2b,
-      gemma3-4b and xlstm-350m at full width and depth, batch 8, an
-      8192-token prompt (twice gemma2's window, four times
-      recurrentgemma's, eight times gemma3's) and 32
-      generated tokens; tokens in range, flash_attention (and
-      rglru_scan for recurrentgemma) launched, mlstm_chunkwise launched
-      once per mLSTM layer (21); prints prefill seconds, decode
-      tokens/s and peak memory; for xlstm, a second prefill after the
-      served run, each mLSTM and sLSTM layer in it timed with a
-      synchronise before and after, splits the prefill's seconds by
-      layer kind (the served prefill itself runs unsynchronised);
+      gemma3-4b, xlstm-350m and olmoe-1b-7b at full width and depth,
+      batch 8, an 8192-token prompt (twice gemma2's window, four times
+      recurrentgemma's, eight times gemma3's; 8 token blocks of
+      olmoe's MoE FFN) and 32 generated tokens; tokens in range,
+      flash_attention (and rglru_scan for recurrentgemma) launched,
+      mlstm_chunkwise launched once per mLSTM layer (21); prints
+      prefill seconds, decode tokens/s, peak memory and the bytes of
+      weights and caches; for xlstm and olmoe, a second prefill after
+      the served run, each mLSTM and sLSTM layer (xlstm) or each
+      attention mix and MoE FFN (olmoe) in it timed with a synchronise
+      before and after, splits the prefill's seconds (the served
+      prefill itself runs unsynchronised);
 5. holds the served prefill against the same prefill through the plain
    versions at full width: last-position logits within a relative L2
    of 2e-2, the first greedy token equal in at least 7 of 8 rows; and
    prints, beside it, how far a one-ulp bump of the first layer's
    normed input moves the plain path's logits (the bf16 noise floor);
-   gemma3-4b, whose floor lies above 2e-2 at its depth, is held to a
-   fixed 4e-2 that a control with half the window must exceed, and
-   each of its 34 layers, fed the plain path's hidden state, gives an
-   attention output within 1e-2 of the plain layer's, where controls
-   with half the window and with no causal mask must not;
+   an arch whose floor lies above 2e-2 at its depth is held to a fixed
+   limit of its own (``SERVE_REL_L2_DEEP``) that a faulty control must
+   exceed; gemma3-4b and olmoe-1b-7b also through ``layer_witness``:
+   each layer, fed the plain path's hidden state, gives an attention
+   output within 1e-2 of the plain layer's, where two faulty controls
+   (``WITNESS_CONTROLS``: half the window or RoPE's base halved, and no
+   causal mask) must not; for olmoe it logs, per layer, how many
+   tokens' top-8 expert sets differ between the two outputs;
 6. each kernel at its main path's full shapes, timed with CUDA events
    (median of 10 runs after a warm-up, each run enough back-to-back
    calls to take about 2 ms) beside its bound, its plain
    version and, where there is one, the one PyTorch call that computes
-   the same function (``wn @ updates`` for fedavg, ``torch.mul`` for
+   the same function (``wn @ updates`` for fedavg, at qwen3's and
+   granite's D; ``torch.mul`` for
    dequantize, SDPA for attention without softcap, with a boolean mask
    of the live keys where the offsets or the window need one; none for
    quantize, softcapped attention, rglru or mlstm); each attention,
@@ -76,12 +86,15 @@ and imports nothing of the JAX package:
    for their type (f32 for the aggregation kernels and rglru, the bf16
    tensor cores for attention, the TF32 tensor cores for mlstm, whose
    line also gives its f32 bound and the 3xTF32 split's ceiling);
-7. checks the steps against a reference on a small input: the reduced
-   qwen3 config trained 2 compressed steps, and reduced gemma2-2b,
-   recurrentgemma-2b and gemma3-4b (40-token prompts) and xlstm-350m
-   (200 tokens, so the last mLSTM chunk pads) prefill plus 4 decode
-   steps, on the card
-   agree with the same work on the CPU's plain versions;
+7. checks the steps against a reference: one olmoe moe layer's FFN at
+   full width (64 experts of 1024, top 8) on 2048 f32 tokens through
+   ``_moe_ffn`` on the card and on the CPU (rtol 1e-4, atol 1e-5); on
+   a small input, the reduced qwen3 and granite-moe configs trained 2
+   compressed steps with P = 3, and reduced gemma2-2b,
+   recurrentgemma-2b, gemma3-4b, olmoe-1b-7b and granite-moe-1b-a400m
+   (40-token prompts) and xlstm-350m (200 tokens, so the last mLSTM
+   chunk pads) prefill plus 4 decode steps, on the card agree with the
+   same work on the CPU's plain versions;
 8. prints one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -106,24 +119,47 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at 700 W
 F32_OPS_PER_S = 67e12           # f32 outside the tensor cores, same sheet
 BF16_OPS_PER_S = 989e12         # bf16 tensor cores, dense, same sheet
 FULL_D = 1_720_574_976          # qwen3-1.7b parameter count
+GRANITE_D = 1_334_628_352       # granite-moe-1b-a400m parameter count
 PODS = 2
 TORRENT_BLOCKS = 4
-MAIN_ARGV = ["--arch", "qwen3-1.7b", "--full", "--pods", str(PODS),
-             "--steps", "4", "--batch", "8", "--seq", "512"]
+# arch, parameter count, train driver steps, then compressed steps of
+# ElasticFLStep; the driver runs P = PODS, batch 8, seq 512
+TRAIN_PATHS = (("qwen3-1.7b", FULL_D, 4, 2),
+               ("granite-moe-1b-a400m", GRANITE_D, 3, 1))
 FEDAVG_TOL = 2e-5
 BF16_TOL = 1e-2
 ATTN_TOL = 3e-5                 # f32 attention, as tests/test_kernels.py
 RGLRU_TOL = 2e-5                # f32 rglru, as tests/test_kernels.py
-SERVE_ARCHS = ("gemma2-2b", "recurrentgemma-2b", "gemma3-4b", "xlstm-350m")
+SERVE_ARCHS = ("gemma2-2b", "recurrentgemma-2b", "gemma3-4b", "xlstm-350m",
+               "olmoe-1b-7b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 8192, 32
+# the functions of models/layers.py that prefill_split times, by the
+# layer kind that calls them
+SPLIT_FUNCS = {"mlstm": ("_apply_mlstm",), "slstm": ("_apply_slstm",),
+               "moe": ("_attention_mix", "_moe_ffn")}
 SERVE_REL_L2 = 2e-2             # kernel vs plain prefill logits, bf16
 # archs whose full-depth logits gap sits at the one-ulp bf16 floor
 # (below), above SERVE_REL_L2: their last logits are held to a fixed
 # limit of their own, above the readings of sound runs and below a
 # faulty control's (PERF.md), and each of their layers is held
-# to LAYER_REL_L2 by layer_witness, where depth does not blur a fault
-SERVE_REL_L2_DEEP = {"gemma3-4b": 4e-2}
+# to LAYER_REL_L2 by layer_witness, where depth does not blur a fault;
+# olmoe's floor is raised by its routing: a one-ulp change of a
+# token's state can swap its 8th and 9th expert
+SERVE_REL_L2_DEEP = {"gemma3-4b": 4e-2, "olmoe-1b-7b": 4e-2}
 LAYER_REL_L2 = 1e-2             # one layer's update, kernels vs plain
+# the faults of the served config that the controls run: a fault of the
+# attention mask, or of the keys' and queries' rotation (an offset of
+# both positions by one cancels in RoPE's relative form, so the control
+# halves RoPE's base instead)
+FAULTS = {"half the window": lambda c: c.replace(window=c.window // 2),
+          "no causal mask": lambda c: c.replace(causal=False),
+          "RoPE theta halved": lambda c: c.replace(rope_theta=c.rope_theta
+                                                   / 2)}
+# archs whose every layer layer_witness holds, with its two controls;
+# the first also runs at full depth as the control of the logits' limit
+# of an arch in SERVE_REL_L2_DEEP (a global-only model has no window)
+WITNESS_CONTROLS = {"gemma3-4b": ("half the window", "no causal mask"),
+                    "olmoe-1b-7b": ("RoPE theta halved", "no causal mask")}
 SERVE_TOKENS_AGREE = 7          # of SERVE_BATCH first greedy tokens
 # b, hq, hkv, tq, tk, d, causal, window, softcap, q_offset, kv_offset:
 # tests/test_torch_kernels.py's ATTN_CASES, then head dims 256 and 80,
@@ -595,8 +631,10 @@ def check_small_mlstm() -> None:
         f" routes {routes})")
 
 
-def check_full_shapes(counts: dict) -> list[dict]:
-    """Each kernel at the train step's shapes: compare, time, bound."""
+def check_full_shapes(train_counts: dict) -> list[dict]:
+    """Each kernel at the train steps' shapes: compare, time, bound.
+    ``train_counts``: each training arch's launch counts; fedavg has a
+    row at each arch's D, quantize and dequantize at qwen3-1.7b's."""
     import torch
 
     from repro_torch.kernels import fedavg, quantize, ref
@@ -606,38 +644,45 @@ def check_full_shapes(counts: dict) -> list[dict]:
     rows = []
 
     # fedavg over the gathered (P, D) f32 buffer
-    n, d = PODS, FULL_D
-    u = torch.randn((n, d), generator=gen, device=dev)
-    w = torch.tensor([3.0, 1.0], device=dev)
-    a = torch.ones(n, device=dev)
-    got = fedavg.fedavg_reduce(u, w, a)
-    # the plain version column block by column block (it is separable
-    # over D), so its temporaries stay small
-    cols = [slice(s0, s0 + (1 << 28)) for s0 in range(0, d, 1 << 28)]
-    err = 0.0
-    for c in cols:
-        err = max(err, _close_err(got[c], ref.fedavg_reduce(u[:, c], w, a),
-                                  FEDAVG_TOL, FEDAVG_TOL, "fedavg full"))
-
-    def plain_fedavg():
+    for arch, d, _, _ in TRAIN_PATHS:
+        n = PODS
+        u = torch.randn((n, d), generator=gen, device=dev)
+        w = torch.tensor([3.0, 1.0], device=dev)
+        a = torch.ones(n, device=dev)
+        got = fedavg.fedavg_reduce(u, w, a)
+        # the plain version column block by column block (it is
+        # separable over D), so its temporaries stay small
+        cols = [slice(s0, s0 + (1 << 28)) for s0 in range(0, d, 1 << 28)]
+        err = 0.0
         for c in cols:
-            ref.fedavg_reduce(u[:, c], w, a)
+            err = max(err, _close_err(got[c],
+                                      ref.fedavg_reduce(u[:, c], w, a),
+                                      FEDAVG_TOL, FEDAVG_TOL,
+                                      f"fedavg full {arch}"))
 
-    wn = ref.masked_normalized_weights(w, a)
-    ms = time_ms(lambda: fedavg.fedavg_reduce(u, w, a))
-    plain = time_ms(plain_fedavg, runs=3)
-    lib = time_ms(lambda: torch.matmul(wn, u), runs=10)
-    nbytes = 4.0 * n * d + 4.0 * d
-    ops = 2.0 * n * d                      # a multiply-add per value
-    rows.append(_row("fedavg_reduce", "csrc/fedavg.cu",
-                     "src/repro/kernels/fedavg.py:60", counts, err, ms,
-                     plain, bound_ms(nbytes, ops), lib))
-    log(f"fedavg_reduce ({n}, {d}) f32: {ms:.3f} ms, "
-        f"{nbytes / ms / 1e6:.1f} GB/s "
-        f"({100 * bound_ms(nbytes)[0] / ms:.1f}% of HBM peak); plain "
-        f"{plain:.3f} ms; wn @ updates {lib:.3f} ms; max err {err:.3e}")
-    del u, got
-    free_cuda()
+        def plain_fedavg():
+            for c in cols:
+                ref.fedavg_reduce(u[:, c], w, a)
+
+        wn = ref.masked_normalized_weights(w, a)
+        ms = time_ms(lambda: fedavg.fedavg_reduce(u, w, a))
+        plain = time_ms(plain_fedavg, runs=3)
+        lib = time_ms(lambda: torch.matmul(wn, u), runs=10)
+        nbytes = 4.0 * n * d + 4.0 * d
+        ops = 2.0 * n * d                      # a multiply-add per value
+        row = _row("fedavg_reduce", "csrc/fedavg.cu",
+                   "src/repro/kernels/fedavg.py:60", train_counts[arch], err,
+                   ms, plain, bound_ms(nbytes, ops), lib)
+        row["shape"] = f"{arch}: ({n}, {d}) f32"
+        rows.append(row)
+        log(f"fedavg_reduce {arch} ({n}, {d}) f32: {ms:.3f} ms, "
+            f"{nbytes / ms / 1e6:.1f} GB/s "
+            f"({100 * bound_ms(nbytes)[0] / ms:.1f}% of HBM peak, bound "
+            f"{bound_ms(nbytes)[0]:.3f} ms); plain {plain:.3f} ms; wn @ "
+            f"updates {lib:.3f} ms; max err {err:.3e}")
+        del u, got
+        free_cuda()
+    counts = train_counts["qwen3-1.7b"]     # quantize's rows: qwen3's D
 
     # quantize / dequantize over the torrent blocks (P * n_blocks, db)
     nq, e = PODS * TORRENT_BLOCKS, FULL_D // TORRENT_BLOCKS
@@ -722,8 +767,11 @@ def _row(name, source, replaces, counts, err, ms, plain, bound, lib):
 # the main path
 # ----------------------------------------------------------------------
 
-def run_main_path() -> dict:
-    """Train driver (4 steps) + 2 compressed ElasticFLStep steps."""
+def run_train_path(arch: str, n_params: int, steps: int,
+                   comp_steps: int) -> dict:
+    """Train driver (``steps`` uncompressed steps) + ``comp_steps``
+    compressed ElasticFLStep steps of ``arch`` at full width, the launch
+    counters set to 0 before and read after; returns the counts."""
     import numpy as np
     import torch
 
@@ -734,36 +782,41 @@ def run_main_path() -> dict:
     from repro_torch.models import init_params, param_count
     from repro_torch.optim import adamw_init
     from repro_torch.optim.schedules import constant_lr
+    from repro_torch.tree import leaves
 
     dev = torch.device("cuda")
+    free_cuda()
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     hist: list = []
-    train.main(MAIN_ARGV, history=hist)
-    check(len(hist) == 4, f"train driver ran {len(hist)} steps, not 4")
+    train.main(["--arch", arch, "--full", "--pods", str(PODS), "--steps",
+                str(steps), "--batch", "8", "--seq", "512"], history=hist)
+    check(len(hist) == steps,
+          f"{arch}: train driver ran {len(hist)} steps, not {steps}")
     check(all(math.isfinite(h["loss"]) for h in hist),
-          f"non-finite loss in {[h['loss'] for h in hist]}")
+          f"{arch}: non-finite loss in {[h['loss'] for h in hist]}")
     peak_a = torch.cuda.max_memory_allocated() / 1e9
-    log("train driver: losses "
+    log(f"{arch} train driver: losses "
         + ", ".join(f"{h['loss']:.4f}" for h in hist) + "; step s "
         + ", ".join(f"{h['seconds']:.3f}" for h in hist)
         + f"; peak memory {peak_a:.2f} GB")
     free_cuda()
 
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("qwen3-1.7b")
+    cfg = get_config(arch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     params = init_params(cfg, gen)
-    check(param_count(params) == FULL_D,
-          f"qwen3-1.7b has {param_count(params)} params, not {FULL_D}")
+    check(param_count(params) == n_params,
+          f"{arch} has {param_count(params)} params, not {n_params}")
+    dtypes = {str(t.dtype) for t in leaves(params)}
     opt = adamw_init(params)
     step = ElasticFLStep(cfg, lr_schedule=constant_lr(1e-4),
                          torrent_blocks=TORRENT_BLOCKS, compress=True)
     rng = np.random.default_rng(1)
     ones = torch.ones(PODS, device=dev)
     comp = []
-    for _ in range(2):
+    for _ in range(comp_steps):
         batch = train.synthetic_batch(rng, PODS, 4, 512, cfg.vocab,
                                       device=dev)
         t0 = time.perf_counter()
@@ -772,19 +825,22 @@ def run_main_path() -> dict:
         torch.cuda.synchronize()
         comp.append((loss, time.perf_counter() - t0))
     check(all(math.isfinite(l) for l, _ in comp),
-          f"non-finite compressed loss in {comp}")
+          f"{arch}: non-finite compressed loss in {comp}")
+    check({str(t.dtype) for t in leaves(params)} == dtypes,
+          f"{arch}: the step changed the leaves' dtypes from {dtypes}")
     peak_b = torch.cuda.max_memory_allocated() / 1e9
-    log("compressed ElasticFLStep: losses "
+    log(f"{arch} compressed ElasticFLStep: losses "
         + ", ".join(f"{l:.4f}" for l, _ in comp) + "; step s "
         + ", ".join(f"{t:.3f}" for _, t in comp)
-        + f"; peak memory {peak_b:.2f} GB")
+        + f"; peak memory {peak_b:.2f} GB; D = {n_params}, leaf dtypes "
+        f"{sorted(dtypes)}")
     counts = dict(LAUNCHES)
     del params, opt, step
     free_cuda()
     for name in ("fedavg_reduce", "chunk_quantize", "chunk_dequantize"):
         check(counts.get(name, 0) > 0,
-              f"{name} never launched on the main path: {counts}")
-    log(f"launches on the main path: {counts}")
+              f"{name} never launched on {arch}'s train path: {counts}")
+    log(f"launches on {arch}'s train path: {counts}")
     return counts
 
 
@@ -818,7 +874,7 @@ def run_serving_path() -> tuple[dict, dict]:
         check(bool(np.isfinite(stats["logits"].numpy()).all()),
               f"{arch}: non-finite prefill logits")
         kinds = list(cfg.pattern) * cfg.n_cycles + list(cfg.tail_kinds)
-        if {"global", "local"} & set(kinds):
+        if {"global", "local", "moe"} & set(kinds):
             check(counts.get("flash_attention", 0) > 0,
                   f"{arch}: flash_attention never launched: {counts}")
         if "rglru" in kinds:
@@ -837,7 +893,7 @@ def run_serving_path() -> tuple[dict, dict]:
         mem = {"weights": stats["param_bytes"] / 1e9,
                "caches": stats["cache_bytes"] / 1e9,
                "global_kv": kv * (SERVE_PROMPT + SERVE_GEN)
-               * kinds.count("global") / 1e9,
+               * (kinds.count("global") + kinds.count("moe")) / 1e9,
                "local_kv": kv * (cfg.window or 0) * kinds.count("local")
                / 1e9,
                "mlstm_state": 4.0 * SERVE_BATCH * cfg.rnn_heads * dh_m
@@ -852,35 +908,37 @@ def run_serving_path() -> tuple[dict, dict]:
             f"caches {mem['caches']:.2f}: global KV {mem['global_kv']:.2f},"
             f" local KV {mem['local_kv']:.2f}, mLSTM C and n "
             f"{mem['mlstm_state']:.2f} GB); launches {counts}")
-        if {"mlstm", "slstm"} & set(kinds):
-            pre, layer_s = prefill_split(cfg)
-            log(f"{arch} prefill by layer kind (a second prefill, each "
-                f"xLSTM layer synchronised and timed: {pre:.3f} s against "
-                f"the served {stats['prefill_s']:.3f} s): "
-                + "; ".join(f"{kinds.count(k)} {k} layers {t:.3f} s "
-                            f"({t / kinds.count(k):.3f} s each, "
+        funcs = [f for k, fs in SPLIT_FUNCS.items() if k in kinds
+                 for f in fs]
+        if funcs:
+            pre, split = prefill_split(cfg, funcs)
+            log(f"{arch} prefill split (a second prefill, each call of "
+                f"{', '.join(funcs)} synchronised and timed: {pre:.3f} s "
+                f"against the served {stats['prefill_s']:.3f} s): "
+                + "; ".join(f"{n} {f} calls {t:.3f} s ({t / n:.3f} s each, "
                             f"{100 * t / pre:.1f}%)"
-                            for k, t in sorted(layer_s.items())))
+                            for f, (t, n) in split.items()))
     free_cuda()
     log(f"launches on the serving path: {total}")
     return total, out
 
 
-def prefill_split(cfg) -> tuple[float, dict]:
+def prefill_split(cfg, funcs) -> tuple[float, dict]:
     """The served config's prefill once more, after the served run and
-    outside its launch count, with each xLSTM prefill layer timed
-    (``prefill_layer_seconds``): its own seconds and the seconds per
-    layer kind.  The served prefill_s carries no such synchronisation."""
+    outside its launch count, with each call of ``funcs`` (names in
+    ``models/layers.py``) timed (``timed_calls``): its own seconds and
+    {func: (seconds, calls)}.  The served prefill_s carries no such
+    synchronisation."""
     import torch
 
     from repro_torch.launch import serve
     from repro_torch.models import prefill
 
-    layer_s: dict = {}
+    split: dict = {}
     with torch.no_grad():
         params = serve.make_params(cfg, "cuda")
         prompts = serve.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, "cuda")
-        with prefill_layer_seconds(layer_s):
+        with timed_calls(split, funcs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, caches = prefill(cfg, params, prompts,
@@ -889,40 +947,38 @@ def prefill_split(cfg) -> tuple[float, dict]:
             total = time.perf_counter() - t0
     del params, prompts, logits, caches
     free_cuda()
-    return total, layer_s
+    return total, split
 
 
 @contextlib.contextmanager
-def prefill_layer_seconds(totals: dict, kinds=("mlstm", "slstm")):
-    """Add to ``totals[kind]`` the host seconds (synchronised before and
-    after) of each prefill call of those layer kinds, for as long as
-    the context lasts, so a prefill's time splits by layer kind; decode
-    calls run untimed.  It swaps ``layers._apply_<kind>``, which
-    ``layers.apply_layer`` looks up at each call."""
+def timed_calls(totals: dict, funcs):
+    """For as long as the context lasts, add to ``totals[func]`` the
+    host seconds (synchronised before and after) and the count of each
+    call of the functions ``funcs`` of ``models/layers.py``, which the
+    layers look up at each call, so a prefill's time splits by them."""
     import torch
 
     from repro_torch.models import layers
-    originals = {kind: getattr(layers, f"_apply_{kind}") for kind in kinds}
+    originals = {f: getattr(layers, f) for f in funcs}
 
-    def timed(kind, fn):
-        def apply(cfg, p, x, mode, cache, pos):
-            if mode != "prefill":
-                return fn(cfg, p, x, mode, cache, pos)
+    def timed(name, fn):
+        def call(*args):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(cfg, p, x, mode, cache, pos)
+            out = fn(*args)
             torch.cuda.synchronize()
-            totals[kind] = totals.get(kind, 0.0) + time.perf_counter() - t0
+            t, n = totals.get(name, (0.0, 0))
+            totals[name] = (t + time.perf_counter() - t0, n + 1)
             return out
-        return apply
+        return call
 
-    for kind, fn in originals.items():
-        setattr(layers, f"_apply_{kind}", timed(kind, fn))
+    for f, fn in originals.items():
+        setattr(layers, f, timed(f, fn))
     try:
         yield totals
     finally:
-        for kind, fn in originals.items():
-            setattr(layers, f"_apply_{kind}", fn)
+        for f, fn in originals.items():
+            setattr(layers, f, fn)
 
 
 def check_serving_vs_plain(served: dict) -> None:
@@ -946,10 +1002,11 @@ def check_serving_vs_plain(served: dict) -> None:
             want = want.float().cpu()
             del caches
             if arch in SERVE_REL_L2_DEEP:
-                # the served path with a fault: half the window
+                # the served path with a fault
+                fault = WITNESS_CONTROLS[arch][0]
                 control, caches = prefill(
-                    served_cfg.replace(window=served_cfg.window // 2),
-                    params, prompts, max_len=SERVE_PROMPT + SERVE_GEN)
+                    FAULTS[fault](served_cfg), params, prompts,
+                    max_len=SERVE_PROMPT + SERVE_GEN)
                 control = control.float().cpu()
                 del caches
             # the noise floor of bf16 through the whole depth: the plain
@@ -978,11 +1035,12 @@ def check_serving_vs_plain(served: dict) -> None:
               f"{arch}: first tokens agree in {agree} of {SERVE_BATCH}")
         if control is not None:
             bad = float((control - want).norm() / want.norm())
-            log(f"{arch} control, the served path with half the window: "
-                f"relative L2 of the last logits {bad:.3e} (must exceed "
-                f"{limit:.3e})")
-            check(bad > limit, f"{arch}: the half-window control's "
-                  f"relative L2 {bad:.3e} is within the limit {limit:.3e}")
+            log(f"{arch} control, the served path with "
+                f"{WITNESS_CONTROLS[arch][0]}: relative L2 of the last "
+                f"logits {bad:.3e} (must exceed {limit:.3e})")
+            check(bad > limit, f"{arch}: the control's relative L2 "
+                  f"{bad:.3e} is within the limit {limit:.3e}")
+        if arch in WITNESS_CONTROLS:
             layer_witness(arch)
 
 
@@ -1006,9 +1064,10 @@ def layer_witness(arch: str) -> None:
     goes on to the next layer, so no layer inherits another's rounding,
     and a kernel's fault shows at the layer where it happens instead of
     in the last logits' gap, which depth drives to the bf16 floor.  Two
-    controls, the served config with a fault of the mask (half the
-    window; no causal mask), must each move some layer past
-    LAYER_REL_L2."""
+    controls, the served config with a fault (``WITNESS_CONTROLS``),
+    must each move some layer past LAYER_REL_L2.  For a moe layer it
+    also logs how many tokens' top-k expert sets differ between the
+    served and the plain attention output (nothing is gated on it)."""
     import torch
 
     from repro_torch.launch import serve
@@ -1017,11 +1076,23 @@ def layer_witness(arch: str) -> None:
 
     cfg = serve.serving_config(arch, reduced=False)
     plain = cfg.replace(attn_impl="xla", rnn_impl="xla")
-    variants = {"kernels": cfg,
-                "half the window": cfg.replace(window=cfg.window // 2),
-                "no causal mask": cfg.replace(causal=False)}
+    variants = {"kernels": cfg}
+    variants.update((name, FAULTS[name](cfg))
+                    for name in WITNESS_CONTROLS[arch])
     gaps: dict = {name: [] for name in variants}
     kinds = []
+    flips = []              # (layer, tokens whose top-k sets differ)
+
+    def experts(lp, x, attn):
+        """Each token's top-k experts, sorted, after ``attn`` joins the
+        residual, as ``layers._apply_attn`` routes them."""
+        if cfg.post_norm:
+            attn = rms_norm(attn, lp["post_ln1"], cfg.norm_eps)
+        h2 = rms_norm(x + attn, lp["ln2"], cfg.norm_eps)
+        probs = torch.softmax(h2.reshape(-1, cfg.d_model).float()
+                              @ lp["router"], dim=-1)
+        return layers._top_k(probs, cfg.top_k)[1].sort(dim=-1).values
+
     with torch.no_grad():
         params = serve.make_params(cfg, "cuda")
         prompts = serve.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, "cuda")
@@ -1034,11 +1105,17 @@ def layer_witness(arch: str) -> None:
                 cache = layers.init_cache(c, kind, SERVE_BATCH, SERVE_PROMPT,
                                           device="cuda")
                 return layers._attention_mix(c, kind, lp, h, "prefill",
-                                             cache, None)[0].float()
+                                             cache, None)[0]
             want = mix(plain)
             for name, c in variants.items():
-                gaps[name].append(float((mix(c) - want).norm()
-                                        / want.norm()))
+                got = mix(c)
+                gaps[name].append(float((got.float() - want.float()).norm()
+                                        / want.float().norm()))
+                if name == "kernels" and kind == "moe":
+                    differ = (experts(lp, x, got) != experts(lp, x, want))
+                    flips.append((len(kinds) - 1,
+                                  int(differ.any(dim=-1).sum())))
+                del got
             x = layers.apply_layer(plain, kind, lp, x, "prefill",
                                    layers.init_cache(plain, kind, SERVE_BATCH,
                                                      SERVE_PROMPT,
@@ -1054,6 +1131,12 @@ def layer_witness(arch: str) -> None:
             + ", ".join(f"{k} {v:.3e}" for k, v in by_kind.items())
             + f"; limit {LAYER_REL_L2:.3e}); every layer: "
             + " ".join(f"{v:.2e}" for v in g))
+    if flips:
+        log(f"{arch} layer witness: tokens (of {SERVE_BATCH * SERVE_PROMPT}) "
+            f"whose top-{cfg.top_k} expert set differs between the served "
+            "and the plain attention output, by layer: "
+            + " ".join(f"{i}:{n}" for i, n in flips)
+            + f" (total {sum(n for _, n in flips)})")
     check(max(gaps["kernels"]) <= LAYER_REL_L2,
           f"{arch}: a layer's attention output through the kernels is "
           f"{max(gaps['kernels']):.3e} from the plain layer's")
@@ -1114,6 +1197,12 @@ def check_full_shapes_serving(counts: dict) -> list[dict]:
                                   0)),
         ("gemma3 decode local", (b, 8, 4, 1, 1024, 256, True, 1024, None,
                                  pos, pos - 1023)),
+        # olmoe-1b-7b: MHA (group 1) at head dim 128, global, no softcap;
+        # decode at the last step, over the whole cache
+        ("olmoe prefill global", (b, 16, 16, t, t, 128, True, None, None, 0,
+                                  0)),
+        ("olmoe decode global, full cache", (b, 16, 16, 1, cache, 128, True,
+                                             None, None, cache - 1, 0)),
     ]
     rows = []
     for label, case in shapes:
@@ -1292,9 +1381,58 @@ def check_full_shape_mlstm(counts: dict) -> list[dict]:
     return [row]
 
 
+MOE_FFN_TOKENS = 2048
+
+
+def check_full_moe_ffn() -> None:
+    """One olmoe-1b-7b moe layer's FFN at full width (d 2048, 64
+    experts of 1024, top 8, cf 1.25) on 2048 tokens in f32 (cap 320):
+    ``_moe_ffn`` on the card against the CPU, the same weights, within
+    rtol 1e-4 and atol 1e-5; the routing (each token's top-8 set) and
+    the dropped assignments are logged."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = get_config("olmoe-1b-7b").replace(dtype="float32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    names = ("router", "moe_gate", "moe_up", "moe_down")
+    layer = layers.init_layer(cfg, "moe", gen, "cuda")
+    p = {name: layer[name] for name in names}
+    x = torch.randn((1, MOE_FFN_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda")
+    out, sets = {}, {}
+    with torch.no_grad():
+        for dev in ("cuda", "cpu"):
+            pd = {name: w.to(dev) for name, w in p.items()}
+            xd = x.to(dev)
+            out[dev] = layers._moe_ffn(cfg, pd, xd).cpu()
+            probs = torch.softmax(xd[0] @ pd["router"], dim=-1)
+            sets[dev] = layers._top_k(probs, cfg.top_k)[1].sort(-1).values.cpu()
+    cap = max(8, -(-math.ceil(MOE_FFN_TOKENS * cfg.top_k / cfg.n_experts
+                              * cfg.capacity_factor) // 8) * 8)
+    per_expert = torch.bincount(sets["cpu"].reshape(-1),
+                                minlength=cfg.n_experts)
+    dropped = int(torch.clamp(per_expert - cap, min=0).sum())
+    differ = int((sets["cuda"] != sets["cpu"]).any(-1).sum())
+    err = _close_err(out["cuda"], out["cpu"], 1e-5, 1e-4,
+                     "full-width MoE FFN card vs CPU")
+    log(f"full-width MoE FFN (olmoe layer: d {cfg.d_model}, "
+        f"{cfg.n_experts} experts of {cfg.d_expert}, top {cfg.top_k}, cf "
+        f"{cfg.capacity_factor}) on {MOE_FFN_TOKENS} tokens f32, cap {cap}:"
+        f" card == CPU, max abs err {err:.3e} (rtol 1e-4, atol 1e-5); "
+        f"top-{cfg.top_k} sets differing {differ} of {MOE_FFN_TOKENS}; "
+        f"{dropped} of {MOE_FFN_TOKENS * cfg.top_k} assignments dropped")
+    del layer, p, x
+    free_cuda()
+
+
 def check_small_serve_vs_cpu() -> None:
-    """Reduced serving configs, prefill + 4 decode steps: the card
-    (CUDA kernels) against the CPU (plain versions), same parameters."""
+    """Reduced serving configs (the serving archs and granite-moe),
+    prefill + 4 decode steps: the card (CUDA kernels) against the CPU
+    (plain versions), same parameters."""
     import numpy as np
     import torch
 
@@ -1302,7 +1440,7 @@ def check_small_serve_vs_cpu() -> None:
     from repro_torch.models import decode_step, prefill
     from repro_torch.tree import tree_map
 
-    for arch in SERVE_ARCHS:
+    for arch in SERVE_ARCHS + ("granite-moe-1b-a400m",):
         cfg = serve.serving_config(arch, reduced=True)
         p_cpu = serve.make_params(cfg, "cpu")
         t = XLSTM_SMALL_PROMPT if "mlstm" in cfg.pattern else 40
@@ -1333,8 +1471,9 @@ def check_small_serve_vs_cpu() -> None:
 
 
 def check_small_step_vs_cpu() -> None:
-    """Reduced qwen3, 2 compressed steps: the card (CUDA kernels)
-    against the CPU (plain versions) from the same parameters."""
+    """Reduced qwen3 and granite-moe, 2 compressed steps with P = 3: the
+    card (CUDA kernels) against the CPU (plain versions) from the same
+    parameters, losses within rtol 1e-4."""
     import numpy as np
     import torch
 
@@ -1346,31 +1485,32 @@ def check_small_step_vs_cpu() -> None:
     from repro_torch.optim.schedules import constant_lr
     from repro_torch.tree import tree_map
 
-    cfg = get_config("qwen3-1.7b", reduced=True)
-    gen = torch.Generator()
-    gen.manual_seed(3)
-    p_cpu = init_params(cfg, gen)
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
-        opt = adamw_init(params)
-        step = make_fl_train_step(cfg, lr_schedule=constant_lr(1e-3),
-                                  n_pods=3, compress=True)
-        rng = np.random.default_rng(3)
-        w = torch.tensor([1.0, 2.0, 3.0])
-        a = torch.tensor([1.0, 0.0, 1.0])
-        losses = []
-        for _ in range(2):
-            batch = synthetic_batch(rng, 3, 2, 32, cfg.vocab, device=dev)
-            params, opt, m = step(params, opt, batch, w, a)
-            losses.append(float(m["loss"]))
-        runs[dev] = losses
-    for lc, lg in zip(runs["cpu"], runs["cuda"]):
-        check(math.isfinite(lg) and abs(lc - lg) <= 1e-4 * abs(lc),
-              f"reduced step on the card {runs['cuda']} vs CPU "
-              f"{runs['cpu']}")
-    log(f"reduced qwen3 P=3 compressed steps: card {runs['cuda']} == "
-        f"CPU {runs['cpu']} (rtol 1e-4)")
+    for arch in ("qwen3-1.7b", "granite-moe-1b-a400m"):
+        cfg = get_config(arch, reduced=True)
+        gen = torch.Generator()
+        gen.manual_seed(3)
+        p_cpu = init_params(cfg, gen)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+            opt = adamw_init(params)
+            step = make_fl_train_step(cfg, lr_schedule=constant_lr(1e-3),
+                                      n_pods=3, compress=True)
+            rng = np.random.default_rng(3)
+            w = torch.tensor([1.0, 2.0, 3.0])
+            a = torch.tensor([1.0, 0.0, 1.0])
+            losses = []
+            for _ in range(2):
+                batch = synthetic_batch(rng, 3, 2, 32, cfg.vocab, device=dev)
+                params, opt, m = step(params, opt, batch, w, a)
+                losses.append(float(m["loss"]))
+            runs[dev] = losses
+        for lc, lg in zip(runs["cpu"], runs["cuda"]):
+            check(math.isfinite(lg) and abs(lc - lg) <= 1e-4 * abs(lc),
+                  f"reduced {arch} step on the card {runs['cuda']} vs CPU "
+                  f"{runs['cpu']}")
+        log(f"reduced {arch} P=3 compressed steps: card {runs['cuda']} == "
+            f"CPU {runs['cpu']} (rtol 1e-4)")
 
 
 # ----------------------------------------------------------------------
@@ -1388,13 +1528,15 @@ def main() -> int:
         check_small()
         check_small_serving()
         check_small_mlstm()
-        counts = run_main_path()
+        train_counts = {arch: run_train_path(arch, d, steps, comp)
+                        for arch, d, steps, comp in TRAIN_PATHS}
         serve_counts, served = run_serving_path()
         check_serving_vs_plain(served)
-        rows = check_full_shapes(counts)
+        rows = check_full_shapes(train_counts)
         rows += check_full_shapes_serving(serve_counts)
         rows += check_full_shape_rglru(serve_counts)
         rows += check_full_shape_mlstm(serve_counts)
+        check_full_moe_ffn()
         check_small_step_vs_cpu()
         check_small_serve_vs_cpu()
     except SmokeFailure as e:

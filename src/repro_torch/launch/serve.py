@@ -5,15 +5,22 @@ Port of ``repro/launch/serve.py`` with the same CLI plus ``--device``
 ``--device cpu`` is given).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --arch olmoe-1b-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --full --batch 8 --prompt-len 8192 --gen 32
 
+Every causal arch of ``repro_torch.configs`` serves: the attention
+archs (gemma2-2b, gemma3-4b, qwen3-1.7b, ...), the moe archs
+(olmoe-1b-7b, granite-moe-1b-a400m: global attention, a top-k MoE FFN
+in plain PyTorch), recurrentgemma-2b and xlstm-350m.
+
 It serves with ``attn_impl="pallas"`` and ``rnn_impl="pallas"``, the
 JAX package's names for its kernels, which the port maps to its CUDA
-kernels (``flash_attention``, ``rglru_scan``): on the card the kernels
-are the serving path, and for CPU tensors the wrappers run their plain
-versions.  That is the one difference from the JAX driver, which
-serves with the config's own impls.  Parameters come from a
+kernels (``flash_attention``, ``rglru_scan``, ``mlstm_chunkwise``): on
+the card the kernels are the serving path, and for CPU tensors the
+wrappers run their plain versions.  That is the one difference from
+the JAX driver, which serves with the config's own impls.  Parameters come from a
 ``torch.Generator`` seeded with 0 and the prompts from
 ``np.random.default_rng(0)``; ``jax.random`` cannot be reproduced in
 torch, so the tokens differ from the JAX driver's.

@@ -21,6 +21,13 @@ pods, reloads the checkpoint and continues, asserting loss continuity.
         --full --pods 2 --steps 4 --batch 8 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train --pods 4 \
         --drop-pod 2 --reduced --steps 12 --batch 8 --seq 32 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \
+        --arch granite-moe-1b-a400m --device cpu --pods 2 --steps 4 \
+        --batch 4 --seq 32
+
+Any arch of ``repro_torch.configs`` trains, the moe archs among them
+(granite-moe-1b-a400m, olmoe-1b-7b; at full width one H100 holds
+granite's training state, not olmoe's).
 """
 from __future__ import annotations
 

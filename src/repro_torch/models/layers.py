@@ -1,4 +1,5 @@
-"""Layer kinds: attention (``"global"``, ``"local"``), RG-LRU, mLSTM, sLSTM.
+"""Layer kinds: attention (``"global"``, ``"local"``, ``"moe"``), RG-LRU,
+mLSTM, sLSTM.
 
 Port of ``repro/models/layers.py``:
 
@@ -22,10 +23,17 @@ or recurrent state into it and return that same dict.
 The mLSTM's prefill runs ``ops.mlstm`` (the ``mlstm_chunkwise``
 kernel when served with ``rnn_impl="pallas"``); its train mode runs the
 plain chunkwise form, which has a gradient.  JAX's scans become Python
-loops.  The ``"moe"`` kind raises ``NotImplementedError`` until a later
-slice ports it (ROADMAP.md).
+loops.
+
+A ``"moe"`` layer is a global attention layer whose FFN is JAX's
+single-device top-k MoE (``_moe_ffn``): sort-based dispatch with a
+per-token-block capacity, dropped overflow, (E, cap, D) batched
+matmuls.  Its router is f32 in any model dtype.  The expert-parallel
+mesh path (``_moe_ffn_shardmap``, ``_moe_local_block``) is not ported.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -35,6 +43,7 @@ from repro_torch.kernels import ops, ref
 from .common import causal_conv1d, dense_init, rms_norm, rope, torch_dtype
 from .config import ArchConfig
 
+ATTN_KINDS = ("global", "local", "moe")
 RGLRU_C = 8.0          # Griffin's fixed recurrence constant
 # ArchConfig keeps the JAX package's impl names.
 _IMPL = {"xla": "torch", "pallas": "cuda"}
@@ -51,13 +60,6 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def _act(name: str):
     return torch.nn.functional.silu if name == "silu" else _gelu
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: the port covers the 'global', "
-        "'local', 'rglru', 'mlstm' and 'slstm' layer kinds; ROADMAP.md "
-        "lists the slice that ports the rest")
 
 
 def _chunked_scan(step, init, xs, *, chunk: int, remat: bool):
@@ -96,7 +98,7 @@ def _chunked_scan(step, init, xs, *, chunk: int, remat: bool):
 
 
 # ======================================================================
-# Attention layers (global / local)
+# Attention layers (global / local / moe)
 # ======================================================================
 
 def _init_attn(cfg: ArchConfig, kind: str, gen: torch.Generator,
@@ -121,10 +123,20 @@ def _init_attn(cfg: ArchConfig, kind: str, gen: torch.Generator,
     if cfg.post_norm:
         p["post_ln1"] = zeros(d)
         p["post_ln2"] = zeros(d)
-    f = cfg.d_ff
-    p["w_gate"] = dense_init(gen, (d, f), dt, device=device)
-    p["w_up"] = dense_init(gen, (d, f), dt, device=device)
-    p["w_down"] = dense_init(gen, (f, d), dt, device=device)
+    if kind == "moe":
+        e, fe = cfg.n_experts, cfg.d_expert
+        p["router"] = dense_init(gen, (d, e), torch.float32, device=device)
+        p["moe_gate"] = dense_init(gen, (e, d, fe), dt, in_axis=1,
+                                   device=device)
+        p["moe_up"] = dense_init(gen, (e, d, fe), dt, in_axis=1,
+                                 device=device)
+        p["moe_down"] = dense_init(gen, (e, fe, d), dt, in_axis=1,
+                                   device=device)
+    else:
+        f = cfg.d_ff
+        p["w_gate"] = dense_init(gen, (d, f), dt, device=device)
+        p["w_up"] = dense_init(gen, (d, f), dt, device=device)
+        p["w_down"] = dense_init(gen, (f, d), dt, device=device)
     return p
 
 
@@ -199,6 +211,94 @@ def _dense_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     return g @ p["w_down"]
 
 
+MOE_TOKEN_BLOCK = 8192
+
+
+def _moe_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+    """Top-k MoE FFN, processed in token blocks.
+
+    Port of the single-device part of ``repro/models/layers.py::_moe_ffn``.
+    The B*T tokens are cut into blocks of MOE_TOKEN_BLOCK (halved until
+    it divides them; one block when it reaches B*T or falls under 64),
+    each routed on its own with its own capacity, so the blocking is
+    part of the function: it decides which assignments are dropped.
+    With grad enabled each block is checkpointed (non-reentrant), as
+    JAX's ``jax.checkpoint`` over ``lax.map``, so the capacity buffers
+    of one block at a time are live.
+    """
+    b, t, d = h.shape
+    n = b * t
+    xf = h.reshape(n, d)
+    block = MOE_TOKEN_BLOCK
+    while n % block:
+        block //= 2
+    if block >= n or block < 64:
+        return _moe_ffn_block(cfg, p, xf).reshape(b, t, d)
+
+    def fn(xb):
+        return _moe_ffn_block(cfg, p, xb)
+
+    remat = torch.is_grad_enabled()
+    out = [checkpoint(fn, xb, use_reentrant=False) if remat else fn(xb)
+           for xb in xf.split(block)]
+    return torch.cat(out).reshape(b, t, d)
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest values and
+    their indices, equal values in index order (``torch.topk`` promises
+    no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_ffn_block(cfg: ArchConfig, p: dict, xf: torch.Tensor
+                   ) -> torch.Tensor:
+    """Sort-based top-k expert routing with capacity (drop overflow).
+
+    Port of ``repro/models/layers.py::_moe_ffn_block``.  xf: (n, D).
+    The f32 router picks each token's top-k experts; the n*k
+    assignments, stably sorted by expert, take slots 0..cap-1 of their
+    expert in token order, and those past ``cap`` go to a sink row that
+    is dropped.  Returns (n, D) in xf's dtype.
+    """
+    n, d = xf.shape
+    e, k_top = cfg.n_experts, cfg.top_k
+    dev = xf.device
+    logits = xf.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = _top_k(probs, k_top)                     # (n, k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    cap = math.ceil(n * k_top / e * cfg.capacity_factor)
+    cap = max(8, -(-cap // 8) * 8)
+    flat_e = idx.reshape(-1)                              # (n*k,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    # each expert's first slot in the sorted order (a bincount's
+    # exclusive cumsum, without the host sync of a CUDA bincount)
+    starts = torch.searchsorted(sorted_e,
+                                torch.arange(e, dtype=flat_e.dtype,
+                                             device=dev))
+    pos_in_e = torch.arange(n * k_top, device=dev) - starts[sorted_e]
+    keep = pos_in_e < cap
+    dest = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)
+    src_token = order // k_top
+
+    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=dev)
+    buf = buf.index_put((dest,), xf[src_token])
+    buf = buf[:-1].reshape(e, cap, d)
+    g = torch.bmm(buf, p["moe_gate"])
+    u = torch.bmm(buf, p["moe_up"])
+    y = torch.bmm(_act(cfg.act)(g) * u, p["moe_down"])
+    y = torch.cat([y.reshape(e * cap, d),
+                   torch.zeros((1, d), dtype=xf.dtype, device=dev)])
+
+    slot = torch.empty_like(dest).scatter_(0, order, dest)
+    yk = y[slot].reshape(n, k_top, d)
+    return (gates.to(xf.dtype)[..., None] * yk).sum(dim=1)
+
+
 def _apply_attn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
                 mode: str, cache, pos):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -207,7 +307,7 @@ def _apply_attn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
         attn = rms_norm(attn, p["post_ln1"], cfg.norm_eps)
     x = x + attn
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    ff = _dense_ffn(cfg, p, h)
+    ff = _moe_ffn(cfg, p, h) if kind == "moe" else _dense_ffn(cfg, p, h)
     if cfg.post_norm:
         ff = rms_norm(ff, p["post_ln2"], cfg.norm_eps)
     return x + ff, new_cache
@@ -442,7 +542,7 @@ def _apply_slstm(cfg: ArchConfig, p: dict, x: torch.Tensor, mode: str,
 
 def init_layer(cfg: ArchConfig, kind: str, gen: torch.Generator,
                device=None) -> dict:
-    if kind in ("global", "local"):
+    if kind in ATTN_KINDS:
         return _init_attn(cfg, kind, gen, device)
     if kind == "rglru":
         return _init_rglru(cfg, gen, device)
@@ -450,8 +550,6 @@ def init_layer(cfg: ArchConfig, kind: str, gen: torch.Generator,
         return _init_mlstm(cfg, gen, device)
     if kind == "slstm":
         return _init_slstm(cfg, gen, device)
-    if kind == "moe":
-        raise _unported(f"layer kind {kind!r}")
     raise ValueError(kind)
 
 
@@ -459,7 +557,7 @@ def apply_layer(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
                 mode: str = "train", cache=None, pos=None):
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
-    if kind in ("global", "local"):
+    if kind in ATTN_KINDS:
         return _apply_attn(cfg, kind, p, x, mode, cache, pos)
     if kind == "rglru":
         return _apply_rglru(cfg, p, x, mode, cache, pos)
@@ -467,8 +565,6 @@ def apply_layer(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
         return _apply_mlstm(cfg, p, x, mode, cache, pos)
     if kind == "slstm":
         return _apply_slstm(cfg, p, x, mode, cache, pos)
-    if kind == "moe":
-        raise _unported(f"layer kind {kind!r}")
     raise ValueError(kind)
 
 
@@ -476,7 +572,7 @@ def init_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                dtype=None, device=None) -> dict:
     """Zeroed decode cache of one layer, as ``repro`` lays it out."""
     dt = dtype or torch_dtype(cfg.dtype)
-    if kind in ("global", "local"):
+    if kind in ATTN_KINDS:
         cdt = dtype or torch_dtype(cfg.cache_dtype or cfg.dtype)
         size = cfg.window if kind == "local" else max_len
         shape = (batch, cfg.n_kv, size, cfg.head_dim)
@@ -503,6 +599,4 @@ def init_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                 "n": torch.zeros((batch, hh, dh), **f32),
                 "h": torch.zeros((batch, hh, dh), **f32),
                 "m": torch.full((batch, hh, dh), ref.NEG_INF, **f32)}
-    if kind == "moe":
-        raise _unported(f"the decode cache of layer kind {kind!r}")
     raise ValueError(kind)

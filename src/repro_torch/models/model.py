@@ -18,8 +18,9 @@ layer boundaries only and recomputed in the backward pass.
 Decode caches mirror the parameter tree (``{"cycles": {"slot<i>":
 stacked}, "tail": [...]}``, JAX's layout), so ``interop`` carries them
 too.  They are updated in place: ``prefill`` allocates every cache at
-its final size (global KV caches at ``max_len`` directly, where the JAX
-code pads a length-T cache with ``_grow_caches``) and fills it, and
+its final size (the KV caches of global and moe layers at ``max_len``
+directly, where the JAX code pads a length-T cache with
+``_grow_caches``) and fills it, and
 ``decode_step`` writes into the caches it is given and returns them.
 """
 from __future__ import annotations
@@ -159,9 +160,9 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
 def prefill(cfg: ArchConfig, p: dict, inputs, max_len: int):
     """Run the prompt, return (logits_last (B, V) f32, caches).
 
-    Global KV caches hold max(max_len, T) entries, the first T of them
-    filled; local caches the last ``window`` keys; recurrent caches the
-    (h, conv) state.
+    Global and moe KV caches hold max(max_len, T) entries, the first T
+    of them filled; local caches the last ``window`` keys; recurrent
+    caches the (h, conv) state.
     """
     assert cfg.causal, "prefill/decode only for causal LMs"
     b, t = inputs.shape[:2]

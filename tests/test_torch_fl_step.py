@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.checkpoint import load_checkpoint as jload  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
 from repro.checkpoint import save_checkpoint as jsave  # noqa: E402
 from repro.dist import torrent as jtorrent  # noqa: E402
 from repro.dist.fl_step import make_fl_train_step as jmake_step  # noqa: E402
@@ -32,6 +33,7 @@ from repro.optim import adamw_update as jadamw_update  # noqa: E402
 from repro.optim import schedules as jsched  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.dist import torrent  # noqa: E402
 from repro_torch.dist.fl_step import ElasticFLStep, make_fl_train_step  # noqa: E402
 from repro_torch.models import ArchConfig  # noqa: E402
@@ -170,9 +172,16 @@ def test_ring_emulation_vs_jax(compress):
 # the FL train step, three steps against the JAX step
 # ----------------------------------------------------------------------
 
-def _step_setup(n_pods, b_local=4, t=16, seed=0):
-    jcfg = JArchConfig(**CFG_KW)
-    tcfg = ArchConfig(**CFG_KW)
+def _step_setup(n_pods, b_local=4, t=16, seed=0, arch=None,
+                dtype="float32"):
+    """Both packages' configs (CFG_KW's, or ``arch``'s reduced one in
+    ``dtype``), the same JAX-initialised params and optimizer state, and
+    three numpy batches."""
+    if arch is None:
+        jcfg, tcfg = JArchConfig(**CFG_KW), ArchConfig(**CFG_KW)
+    else:
+        jcfg = jax_config(arch, reduced=True).replace(dtype=dtype)
+        tcfg = get_config(arch, reduced=True).replace(dtype=dtype)
     jp = jinit(jcfg, jax.random.PRNGKey(seed))
     jo = jadamw_init(jp)
     np_p = jax.tree_util.tree_map(np.asarray, jp)
@@ -180,29 +189,51 @@ def _step_setup(n_pods, b_local=4, t=16, seed=0):
     to = interop.opt_from_numpy(jax.tree_util.tree_map(np.asarray, jo),
                                 "cpu")
     rng = np.random.default_rng(seed)
-    batches = [{"inputs": rng.integers(0, 128, size=(n_pods, b_local, t)),
-                "labels": rng.integers(0, 128, size=(n_pods, b_local, t))}
+    v = jcfg.vocab
+    batches = [{"inputs": rng.integers(0, v, size=(n_pods, b_local, t)),
+                "labels": rng.integers(0, v, size=(n_pods, b_local, t))}
                for _ in range(3)]
     return jcfg, tcfg, (jp, jo), (tp, to), batches
 
 
+def _assert_dtypes_match(t_tree, j_tree):
+    tl = leaves(t_tree)
+    jl = jax.tree_util.tree_leaves(j_tree)
+    assert len(tl) == len(jl)
+    for a, b in zip(tl, jl):
+        assert str(a.dtype).replace("torch.", "") == str(b.dtype)
+
+
 @pytest.mark.parametrize("variant", ["pods1", "pods2", "pods4",
                                      "straggler", "microbatch",
-                                     "compress"])
+                                     "compress", "granite",
+                                     "granite_bf16"])
 def test_fl_train_step_three_steps_vs_jax(variant):
-    n_pods = {"pods1": 1, "pods2": 2}.get(variant, 4)
+    """``granite`` is reduced granite-moe-1b-a400m (moe layers) in f32
+    with P = 2; ``granite_bf16`` the same in bf16, whose f32 router sits
+    among bf16 leaves: every leaf of the params and of AdamW's master, m
+    and v keeps JAX's dtype through the steps, and the losses agree to
+    the bf16 tolerance (bf16 gradients differ in their last bits, which
+    AdamW's sign-like first steps carry into the values, so the values
+    are held in the f32 case)."""
+    n_pods = {"pods1": 1, "pods2": 2, "granite": 2,
+              "granite_bf16": 2}.get(variant, 4)
     kw = {"microbatch": {"microbatch": 2},
           "compress": {"compress": True}}.get(variant, {})
     w = np.array([1., 2., 3., 4.][:n_pods], np.float32)
     a = np.ones(n_pods, np.float32)
     if variant == "straggler":
         a[2] = 0.0
-    jcfg, tcfg, (jp, jo), (tp, to), batches = _step_setup(n_pods)
+    arch = "granite-moe-1b-a400m" if variant.startswith("granite") else None
+    dtype = "bfloat16" if variant == "granite_bf16" else "float32"
+    jcfg, tcfg, (jp, jo), (tp, to), batches = _step_setup(n_pods, arch=arch,
+                                                          dtype=dtype)
     jstep = jax.jit(jmake_step(jcfg, None,
                                lr_schedule=jsched.constant_lr(LR),
                                n_pods=n_pods, **kw))
     tstep = make_fl_train_step(tcfg, lr_schedule=schedules.constant_lr(LR),
                                n_pods=n_pods, **kw)
+    loss_tol = 1e-2 if dtype == "bfloat16" else STEP_TOL
     for batch in batches:
         jp, jo, jm = jstep(jp, jo, jax.tree_util.tree_map(jnp.asarray,
                                                           batch),
@@ -210,10 +241,26 @@ def test_fl_train_step_three_steps_vs_jax(variant):
         tp, to, tm = tstep(tp, to, tree_map(torch.as_tensor, batch),
                            torch.from_numpy(w), torch.from_numpy(a))
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
-                                   atol=STEP_TOL, rtol=STEP_TOL)
+                                   atol=loss_tol, rtol=loss_tol)
         assert tm["lr"] == pytest.approx(float(jm["lr"]), rel=1e-7)
     assert int(to.step) == int(jo.step) == 3
-    flip = LR if variant == "compress" else None
+    for ours, theirs in ((tp, jp), (to.master, jo.master), (to.m, jo.m),
+                         (to.v, jo.v)):
+        _assert_dtypes_match(ours, theirs)
+    if arch is not None:
+        routers = [tp["cycles"]["slot0"]["router"],
+                   to.master["cycles"]["slot0"]["router"]]
+        assert all(r.dtype == torch.float32 for r in routers)
+        want = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        assert tp["cycles"]["slot0"]["moe_gate"].dtype == want
+        assert tp["embed"].dtype == want
+    if dtype == "bfloat16":
+        return
+    # compression: a code one int8 step apart; granite: the few expert
+    # weights whose gradient sits near AdamW's eps (|g| < 1e-7 for about
+    # 5e-5 of them), where the f32 rounding of the gradient moves the
+    # update
+    flip = LR if variant in ("compress", "granite") else None
     for ours, theirs in ((tp, jp), (to.master, jo.master), (to.m, jo.m),
                          (to.v, jo.v)):
         _assert_trees_close(ours, theirs, STEP_TOL, flip_atol=flip)

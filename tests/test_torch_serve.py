@@ -1,7 +1,8 @@
 """The port's serving path against the JAX package's, on the CPU.
 
-Reduced gemma2-2b, gemma3-4b, recurrentgemma-2b (float32, window 16)
-and xlstm-350m, with prompts shorter and longer than the window, so the
+Reduced gemma2-2b, gemma3-4b, recurrentgemma-2b (float32, window 16),
+xlstm-350m and the moe archs olmoe-1b-7b and granite-moe-1b-a400m, with
+prompts shorter and longer than the window, so the
 local caches are left-padded in one case and cut to the last ``window``
 keys in the other, and roll during decode.  Both packages start from the
 same JAX-initialised weights (``repro_torch.interop``).  JAX runs its
@@ -36,7 +37,8 @@ from repro_torch.models import init_decode_cache, prefill  # noqa: E402
 from repro_torch.tree import flatten, leaves  # noqa: E402
 
 ATOL, RTOL = 1e-5, 1e-4
-ARCHS = ["gemma2-2b", "gemma3-4b", "recurrentgemma-2b", "xlstm-350m"]
+ARCHS = ["gemma2-2b", "gemma3-4b", "recurrentgemma-2b", "xlstm-350m",
+         "olmoe-1b-7b", "granite-moe-1b-a400m"]
 PROMPTS = [10, 37]          # shorter and longer than the window (16)
 STEPS = 4
 BATCH = 2
@@ -144,7 +146,8 @@ def test_decode_cache_tree_matches_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "recurrentgemma-2b",
-                                  "xlstm-350m"])
+                                  "xlstm-350m", "olmoe-1b-7b",
+                                  "granite-moe-1b-a400m"])
 def test_serve_driver_on_the_cpu(arch):
     stats = {}
     toks = serve.main(["--arch", arch, "--batch", "3", "--prompt-len", "20",
