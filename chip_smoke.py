@@ -75,7 +75,7 @@ and imports nothing of the JAX package:
    calls to take about 2 ms) beside its bound, its plain
    version and, where there is one, the one PyTorch call that computes
    the same function (``wn @ updates`` for fedavg, at qwen3's and
-   granite's D; ``torch.mul`` for
+   granite's D, and in the swarm (8c); ``torch.mul`` for
    dequantize, SDPA for attention without softcap, with a boolean mask
    of the live keys where the offsets or the window need one; none for
    quantize, softcapped attention, rglru or mlstm); each attention,
@@ -95,7 +95,40 @@ and imports nothing of the JAX package:
    (40-token prompts) and xlstm-350m (200 tokens, so the last mLSTM
    chunk pads) prefill plus 4 decode steps, on the card agree with the
    same work on the CPU's plain versions;
-8. prints one ``{"kernels": [...]}`` line and, last,
+8. the swarm (the FLTorrent round of ``repro_torch.core``):
+   a. on the host, the port's ``simulate_round`` replays every loop and
+      batched schedule of tests/golden_schedules.json to the same
+      digest (5 policies x 2 engines x 2 seeds, n 16, K 24) and its
+      attacks give the file's exact ASR numbers (all defences on and
+      off, seeds 0 and 1, n 24);
+   b. on the host, one round at the paper's scale (n 500, K 206,
+      greedy fastest first on the batched engine, every warm-up
+      defence, then fluid BitTorrent): every update reconstructable,
+      no failed-open warm-up, Eq. 1 on every warm-up transfer, the log
+      legal (the rules of the equivalence tests' replay, copied here);
+      prints t_warm, t_round, the warm-up share and utilisation, the
+      three attacks' ASR from 6 observers against 1/m and the host
+      seconds by phase;
+   c. on the card, the data plane at full width: 16 peers' updates of
+      xlstm-350m (peer 0 its seeded parameter tree, 565,215,232
+      values; peers 1 to 15 seeded f32 noise) packed into one (16, 540,
+      1,048,576) f32 buffer of 4 MiB pieces (36.24 GB); peer 0's
+      torrent descriptor hashed on the host, accepting 8 of its pieces
+      and rejecting one with a flipped bit; its pieces reassembled into
+      its tree exactly, leaf by leaf and dtype by dtype; then, the
+      launch counters set to 0, two rounds of the 16-peer swarm
+      (``DATACENTER`` links, exact BitTorrent, seed 0, s_max 30 and the
+      default deadline that never binds: 46 and 256 reconstructable
+      (v, u) pairs) and every peer's FedAvg over its own A_v through
+      ``fedavg_flat(use_kernel=True)``, the ``fedavg_reduce`` kernel (32
+      launches), each held against the plain version on column slices
+      of 2.1 GB (atol = rtol = 2e-5), and at the open deadline all 16
+      aggregates equal bit for bit (``agreement_check``, atol 0); prints
+      the rounds' host seconds, the hashing seconds, the launches and
+      peak memory, and times ``fedavg_reduce`` over all 16 rows
+      (566,231,040 columns) beside its bound, the plain version by
+      slices and ``wn @ updates``;
+9. prints one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line is printed.  With
@@ -637,7 +670,7 @@ def check_full_shapes(train_counts: dict) -> list[dict]:
     row at each arch's D, quantize and dequantize at qwen3-1.7b's."""
     import torch
 
-    from repro_torch.kernels import fedavg, quantize, ref
+    from repro_torch.kernels import quantize, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
@@ -645,42 +678,11 @@ def check_full_shapes(train_counts: dict) -> list[dict]:
 
     # fedavg over the gathered (P, D) f32 buffer
     for arch, d, _, _ in TRAIN_PATHS:
-        n = PODS
-        u = torch.randn((n, d), generator=gen, device=dev)
+        u = torch.randn((PODS, d), generator=gen, device=dev)
         w = torch.tensor([3.0, 1.0], device=dev)
-        a = torch.ones(n, device=dev)
-        got = fedavg.fedavg_reduce(u, w, a)
-        # the plain version column block by column block (it is
-        # separable over D), so its temporaries stay small
-        cols = [slice(s0, s0 + (1 << 28)) for s0 in range(0, d, 1 << 28)]
-        err = 0.0
-        for c in cols:
-            err = max(err, _close_err(got[c],
-                                      ref.fedavg_reduce(u[:, c], w, a),
-                                      FEDAVG_TOL, FEDAVG_TOL,
-                                      f"fedavg full {arch}"))
-
-        def plain_fedavg():
-            for c in cols:
-                ref.fedavg_reduce(u[:, c], w, a)
-
-        wn = ref.masked_normalized_weights(w, a)
-        ms = time_ms(lambda: fedavg.fedavg_reduce(u, w, a))
-        plain = time_ms(plain_fedavg, runs=3)
-        lib = time_ms(lambda: torch.matmul(wn, u), runs=10)
-        nbytes = 4.0 * n * d + 4.0 * d
-        ops = 2.0 * n * d                      # a multiply-add per value
-        row = _row("fedavg_reduce", "csrc/fedavg.cu",
-                   "src/repro/kernels/fedavg.py:60", train_counts[arch], err,
-                   ms, plain, bound_ms(nbytes, ops), lib)
-        row["shape"] = f"{arch}: ({n}, {d}) f32"
-        rows.append(row)
-        log(f"fedavg_reduce {arch} ({n}, {d}) f32: {ms:.3f} ms, "
-            f"{nbytes / ms / 1e6:.1f} GB/s "
-            f"({100 * bound_ms(nbytes)[0] / ms:.1f}% of HBM peak, bound "
-            f"{bound_ms(nbytes)[0]:.3f} ms); plain {plain:.3f} ms; wn @ "
-            f"updates {lib:.3f} ms; max err {err:.3e}")
-        del u, got
+        a = torch.ones(PODS, device=dev)
+        rows.append(fedavg_row(u, w, a, train_counts[arch], arch, 1 << 28))
+        del u
         free_cuda()
     counts = train_counts["qwen3-1.7b"]     # quantize's rows: qwen3's D
 
@@ -1514,6 +1516,392 @@ def check_small_step_vs_cpu() -> None:
 
 
 # ----------------------------------------------------------------------
+# the swarm: the FLTorrent round on the host, its data plane on the card
+# ----------------------------------------------------------------------
+
+GOLDEN = ROOT / "tests" / "golden_schedules.json"
+GOLDEN_MODES = ("random_fifo", "random_fastest_first",
+                "greedy_fastest_first", "distributed", "flooding")
+GOLDEN_IMPLS = ("batched", "loop")      # the port has no jit engine yet
+GOLDEN_SEEDS = (1, 9)
+# the columns of a transfer log that tests/capture_golden.py digests
+LOG_KEYS = ("slot", "sender", "receiver", "chunk", "owner", "b_size",
+            "o_size", "phase")
+# the scaling point of benchmarks/bench_scheduler.py: n 500, K 206
+# (GoogLeNet's chunking), greedy fastest first on the batched engine,
+# k_term 1030 chunks a client, every warm-up defence on
+PAPER_N, PAPER_K = 500, 206
+ATTACK_OBSERVERS = 6
+# the data plane: 16 peers' updates of xlstm-350m at full width, cut
+# into 4 MiB pieces (the last one padded)
+SWARM_ARCH = "xlstm-350m"
+SWARM_D = 565_215_232           # xlstm-350m parameter count
+SWARM_PEERS = 16
+SWARM_CHUNK_BYTES = 4 << 20
+SWARM_K = 540
+# the rounds' deadlines (None: the default, which never binds) and how
+# many (v, u) pairs each leaves reconstructable
+SWARM_DEADLINES = ((30, 46), (None, 256))
+SWARM_SLICE_COLS = 1 << 25      # plain fedavg on (16, 2^25) f32: 2.1 GB
+SWARM_VERIFY_PIECES = 8
+
+
+def log_digest(log) -> str:
+    """tests/capture_golden.py's sha256 over a transfer log's columns."""
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    for key in LOG_KEYS:
+        arr = np.ascontiguousarray(np.asarray(log[key], dtype=np.int64))
+        h.update(key.encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def check_swarm_goldens() -> None:
+    """The port's ``simulate_round`` replays every loop and batched
+    schedule of tests/golden_schedules.json (5 policies x 2 engines x
+    seeds 1 and 9; n 16, K 24) to the same digest, and its attacks give
+    the file's exact ASR numbers (all defences on and all off, seeds 0
+    and 1; loop engine, n 24)."""
+    import numpy as np
+
+    from repro_torch.core import SwarmConfig, simulate_round
+    from repro_torch.core.attacks import run_all_attacks
+
+    golden = json.loads(GOLDEN.read_text())
+    t0 = time.perf_counter()
+    for mode in GOLDEN_MODES:
+        for impl in GOLDEN_IMPLS:
+            for seed in GOLDEN_SEEDS:
+                cfg = SwarmConfig(n=16, chunks_per_update=24, s_max=5000,
+                                  seed=seed, scheduler=mode,
+                                  scheduler_impl=impl)
+                key = f"{mode}/{impl}/{seed}"
+                got = log_digest(simulate_round(cfg).log)
+                check(got == golden["schedules"][key],
+                      f"golden schedule {key}: digest {got} != "
+                      f"{golden['schedules'][key]}")
+    t_sched = time.perf_counter() - t0
+    ablations = {"full": {},
+                 "none": dict(enable_preround=False, enable_timelag=False,
+                              enable_gating=False,
+                              enable_nonowner_first=False)}
+    for name, kw in ablations.items():
+        for seed in (0, 1):
+            cfg = SwarmConfig(n=24, chunks_per_update=24, s_max=5000,
+                              seed=seed, scheduler_impl="loop", **kw)
+            res = simulate_round(cfg)
+            reps = run_all_attacks(res.log, np.arange(6), 24)
+            pooled = run_all_attacks(res.log, np.arange(12), 24,
+                                     pooled=True)
+            got = {a: {"max": reps[a].max_asr, "mean": reps[a].mean_asr,
+                       "n": reps[a].n_decisions,
+                       "pooled_max": pooled[a].max_asr,
+                       "pooled_any": pooled[a].any_correct_rate}
+                   for a in reps}
+            key = f"{name}/{seed}"
+            check(got == golden["attacks"][key],
+                  f"golden attacks {key}: {got} != {golden['attacks'][key]}")
+    n_sched = len(GOLDEN_MODES) * len(GOLDEN_IMPLS) * len(GOLDEN_SEEDS)
+    log(f"swarm goldens: {n_sched} loop and batched schedule digests and "
+        f"{2 * len(ablations)} attack sets equal to "
+        f"tests/golden_schedules.json; host {time.perf_counter() - t0:.2f}"
+        f" s ({t_sched:.2f} s the schedules)")
+
+
+def replay_legality(cfg, res, check_tau: bool) -> None:
+    """The rules of tests/test_scheduler_equivalence.py::_replay_legality:
+    replay the log slot by slot against reconstructed inventories; every
+    sender holds what it sends, no receiver gets a chunk twice, and
+    outside the spray every slot keeps the uplink and downlink budgets,
+    the overlay's adjacency and (``check_tau``) tau concurrency."""
+    from collections import Counter
+
+    import numpy as np
+    n, K = cfg.n, cfg.chunks_per_update
+    log = res.log
+    have = np.zeros((n, cfg.total_chunks), dtype=bool)
+    for v in range(n):
+        have[v, v * K:(v + 1) * K] = True
+    # spray (phase 0) applies before warm-up slot 0
+    key = log["slot"].astype(np.int64) * 4 + log["phase"]
+    order = np.argsort(key, kind="stable")
+    snd = log["sender"][order]
+    rcv = log["receiver"][order]
+    chk = log["chunk"][order]
+    ph = log["phase"][order]
+    key = key[order]
+    for s in np.unique(key):
+        sl = key == s
+        check(bool(have[snd[sl], chk[sl]].all()), "sender missing chunk")
+        check(not have[rcv[sl], chk[sl]].any(), "duplicate delivery")
+        have[rcv[sl], chk[sl]] = True
+        if (ph[sl] == 0).any():
+            continue                    # spray is tracker-tunnelled
+        check(bool((np.bincount(snd[sl], minlength=n) <= res.up).all()),
+              "uplink budget exceeded")
+        check(bool((np.bincount(rcv[sl], minlength=n) <= res.down).all()),
+              "downlink budget exceeded")
+        check(bool(res.adj[snd[sl], rcv[sl]].all()), "non-adjacent transfer")
+        if check_tau:
+            pairs = set(zip(snd[sl].tolist(), rcv[sl].tolist()))
+            per_sender = Counter(u for u, _ in pairs)
+            check(max(per_sender.values(), default=0)
+                  <= cfg.tau_concurrent, "tau concurrency exceeded")
+
+
+def run_swarm_paper_scale() -> None:
+    """One round at the paper's scale on the host (``PAPER_N`` peers,
+    ``PAPER_K`` chunks each, spray, lags, gating, non-owner-first
+    warm-up, then BitTorrent, here the fluid engine, which ``bt_mode``
+    "auto" picks at this size): every update reconstructable, no
+    failed-open warm-up, Eq. 1 on every warm-up transfer, the log
+    legal; logs the round's metrics, the three attacks' ASR from
+    ``ATTACK_OBSERVERS`` observers against 1/m, and the host seconds."""
+    import numpy as np
+
+    from repro_torch.core import SwarmConfig, privacy
+    from repro_torch.core.attacks import run_all_attacks
+    from repro_torch.core.simulator import RoundSimulator, measured_clock
+
+    cfg = SwarmConfig(n=PAPER_N, chunks_per_update=PAPER_K, s_max=100_000,
+                      seed=0, scheduler="greedy_fastest_first",
+                      scheduler_impl="batched",
+                      warmup_threshold_pct=5.0 / PAPER_N, cand_cap=8192)
+    t0 = time.perf_counter()
+    with measured_clock():
+        res = RoundSimulator(cfg).run()
+    host_s = time.perf_counter() - t0
+    m = res.metrics
+    check(bool(res.reconstructable.all()),
+          f"n={PAPER_N}: {int((~res.reconstructable).sum())} (v, u) pairs "
+          "not reconstructable")
+    check(not m.failed_open, f"n={PAPER_N}: the warm-up failed open")
+    check(privacy.check_eq1(res.log, cfg.owner_throttle, cfg.k_gate),
+          f"n={PAPER_N}: a warm-up transfer breaks Eq. 1")
+    t1 = time.perf_counter()
+    replay_legality(cfg, res, check_tau=True)
+    reps = run_all_attacks(res.log, np.arange(ATTACK_OBSERVERS), PAPER_K)
+    check_s = time.perf_counter() - t1
+    phases = ", ".join(f"{k[:-2]} {v:.2f}" for k, v in res.timings.items())
+    log(f"swarm n={PAPER_N} K={PAPER_K} {cfg.scheduler} batched, bt "
+        f"{'fluid' if res.fluid_bt else 'exact'}: t_warm {m.t_warm}, "
+        f"t_round {m.t_round}, warm-up share {m.warmup_share:.4f}, warm-up "
+        f"utilisation {m.warmup_utilization:.4f}, {len(res.log['slot'])} "
+        f"logged transfers; Eq. 1 holds, log legal, all reconstructable; "
+        "ASR (max / mean / decisions) "
+        + "; ".join(f"{a} {r.max_asr:.4f} / {r.mean_asr:.4f} / "
+                    f"{r.n_decisions}" for a, r in reps.items())
+        + f" against 1/m = {1 / cfg.min_degree:.4f}; host {host_s:.2f} s "
+        f"({phases} s), checks {check_s:.2f} s")
+
+
+def run_swarm_path(reduced: bool = False) -> tuple[dict, list[dict]]:
+    """The round's data plane at full width (``reduced``: the reduced
+    config on the CPU, a rehearsal with the plain versions).
+
+    Peer 0's update is an xlstm-350m parameter tree made from a seed,
+    flattened and packed into one (16, K, C/4) f32 buffer beside 15
+    peers' seeded noise.  Peer 0's descriptor is hashed on the host,
+    accepts ``SWARM_VERIFY_PIECES`` pieces and rejects one with a
+    flipped bit, and reassembling its pieces gives its tree back
+    exactly.  Then, the launch counters set to 0, two rounds of the
+    16-peer swarm (``DATACENTER`` links, the exact BitTorrent engine,
+    the deadlines of ``SWARM_DEADLINES``) and each peer's FedAvg over
+    its own A_v through ``fedavg_flat(use_kernel=True)``; each
+    aggregate is held against the plain version on column slices, and
+    at the deadline that never binds every peer's equals peer 0's bit
+    for bit (``agreement_check``, atol 0).  Returns the launch counts
+    and the kernels-line row of ``fedavg_reduce`` at this shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import SwarmConfig, capacities, chunking
+    from repro_torch.core import simulate_round
+    from repro_torch.core.aggregation import agreement_check, fedavg_flat
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.launch import serve
+    from repro_torch.models import param_count
+    from repro_torch.tree import leaves
+
+    dev = torch.device("cpu" if reduced else "cuda")
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda:
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SWARM_ARCH, reduced=reduced)
+    chunk_bytes = 4096 if reduced else SWARM_CHUNK_BYTES
+    params = serve.make_params(cfg, dev)
+    d = param_count(params)
+    check(reduced or d == SWARM_D, f"{SWARM_ARCH} has {d} params, not "
+          f"{SWARM_D}")
+    flat, spec = chunking.flatten_update(params)
+    buf = chunking.alloc_chunks(SWARM_PEERS, d, chunk_bytes, dev)
+    k = buf.shape[1]
+    check(reduced or k == SWARM_K, f"{k} pieces, not {SWARM_K}")
+    chunking.pack_chunks(flat, chunk_bytes, out=buf[0])
+    del flat
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    for v in range(1, SWARM_PEERS):
+        buf[v].view(-1)[:d].normal_(generator=gen)
+    rng = np.random.default_rng(18)
+    weights = rng.integers(1, 1000, SWARM_PEERS).astype(np.float64)
+    sync()
+
+    # peer 0's descriptor, piece checks and reassembly
+    t0 = time.perf_counter()
+    desc = chunking.TorrentDescriptor.build(buf[0], weights[0])
+    hash_s = time.perf_counter() - t0
+    check(desc.num_chunks == k and desc.chunk_bytes == chunk_bytes,
+          f"descriptor of {desc.num_chunks} x {desc.chunk_bytes} bytes")
+    picks = [k - 1] + sorted(rng.choice(k - 1, SWARM_VERIFY_PIECES - 1,
+                                        replace=False).tolist())
+    for i in picks:
+        check(desc.verify_chunk(i, buf[0, i]),
+              f"descriptor rejects peer 0's piece {i}")
+    bad = buf[0, picks[1]].to("cpu", copy=True)
+    word = bad.view(torch.int32)
+    word[12345 % word.numel()] ^= 1 << 3
+    check(not desc.verify_chunk(picks[1], bad),
+          f"descriptor accepts piece {picks[1]} with a flipped bit")
+    back = chunking.reassemble_update(buf[0], (spec, d))
+    for a, b in zip(leaves(back), leaves(params), strict=True):
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and torch.equal(a, b), "reassembled leaf differs: "
+              f"{a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}")
+    n_leaves = len(leaves(params))
+    dtypes = sorted({str(t.dtype) for t in leaves(params)})
+    del back, params
+    log(f"swarm data plane: {SWARM_PEERS} peers x ({k}, {buf.shape[2]}) "
+        f"f32 pieces ({buf.numel() * 4 / 1e9:.2f} GB), peer 0 = "
+        f"{SWARM_ARCH} (D = {d}, {n_leaves} leaves, {dtypes}); peer 0's "
+        f"descriptor {desc.desc_id} hashed in {hash_s:.2f} s on the host "
+        f"({d * 4 / 1e9 / hash_s:.2f} GB/s with the copy), "
+        f"{SWARM_VERIFY_PIECES} pieces accepted, a flipped bit rejected; "
+        f"reassembly exact, leaf by leaf and dtype by dtype")
+
+    # the main path: two rounds, each peer's FedAvg over its own A_v
+    flat2d = buf.view(SWARM_PEERS, -1)
+    cols = [slice(c, c + SWARM_SLICE_COLS)
+            for c in range(0, flat2d.shape[1], SWARM_SLICE_COLS)]
+    w_dev = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    reset_launches()
+    for s_max, pairs in SWARM_DEADLINES:
+        kw = {} if s_max is None else {"s_max": s_max}
+        scfg = SwarmConfig(n=SWARM_PEERS, chunks_per_update=k,
+                           chunk_bytes=chunk_bytes, seed=0, min_degree=10,
+                           **kw)
+        t0 = time.perf_counter()
+        res = simulate_round(scfg, link_model=capacities.DATACENTER,
+                             bt_mode="exact")
+        round_s = time.perf_counter() - t0
+        recon = res.reconstructable
+        check(reduced or int(recon.sum()) == pairs,
+              f"s_max {s_max}: {int(recon.sum())} reconstructable pairs, "
+              f"not {pairs}")
+        check(bool(np.diag(recon).all()),
+              f"s_max {s_max}: a peer cannot rebuild its own update")
+        agg_s, err, first = 0.0, 0.0, None
+        for v in range(SWARM_PEERS):
+            sync()
+            t0 = time.perf_counter()
+            agg = fedavg_flat(flat2d, weights, recon[v], use_kernel=True)
+            sync()
+            agg_s += time.perf_counter() - t0
+            a_dev = torch.as_tensor(recon[v], dtype=torch.float32,
+                                    device=dev)
+            for c in cols:
+                err = max(err, _close_err(
+                    agg[c], ref.fedavg_reduce(flat2d[:, c], w_dev, a_dev),
+                    FEDAVG_TOL, FEDAVG_TOL,
+                    f"swarm peer {v} FedAvg over A_v (s_max {s_max})"))
+            if s_max is None:
+                if first is None:
+                    first = agg
+                else:
+                    check(agreement_check([first, agg], atol=0.0),
+                          f"peer {v}'s aggregate differs from peer 0's at "
+                          "the deadline that never binds")
+            del agg
+        del first
+        log(f"swarm round n={SWARM_PEERS} K={k} DATACENTER exact, s_max "
+            f"{s_max or scfg.s_max}: t_warm {res.metrics.t_warm}, t_round "
+            f"{res.metrics.t_round}, {int(recon.sum())} of "
+            f"{SWARM_PEERS ** 2} pairs reconstructable, "
+            f"{len(np.unique(recon, axis=0))} distinct A_v; host "
+            f"{round_s:.3f} s; {SWARM_PEERS} per-peer FedAvg "
+            f"{agg_s:.3f} s, max err against the plain version "
+            f"{err:.3e}" + ("; all 16 aggregates bit-identical"
+                             if s_max is None else ""))
+    counts = dict(LAUNCHES)
+    if cuda:
+        check(counts.get("fedavg_reduce", 0) == 2 * SWARM_PEERS,
+              f"fedavg_reduce launched {counts.get('fedavg_reduce', 0)} "
+              f"times on the swarm path, not {2 * SWARM_PEERS}: {counts}")
+    log(f"launches on the swarm path: {counts}")
+    rows = []
+    if cuda:
+        rows.append(fedavg_row(flat2d, w_dev,
+                               torch.ones(SWARM_PEERS, device=dev), counts,
+                               "swarm, all rows", SWARM_SLICE_COLS))
+        log(f"swarm peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+            " GB")
+    del buf, flat2d
+    if cuda:
+        free_cuda()
+    return counts, rows
+
+
+def fedavg_row(u, w, a, counts, label, cols_width) -> dict:
+    """``fedavg_reduce`` over the (n, D) f32 rows ``u``: compare, time,
+    bound.  The plain version runs column slice by column slice of
+    ``cols_width`` (it is separable over D), so that its (n, D)
+    temporaries stay small beside ``u``."""
+    import torch
+
+    from repro_torch.kernels import fedavg, ref
+    n, d = u.shape
+    cols = [slice(c, c + cols_width) for c in range(0, d, cols_width)]
+    got = fedavg.fedavg_reduce(u, w, a)
+    err = 0.0
+    for c in cols:
+        err = max(err, _close_err(got[c], ref.fedavg_reduce(u[:, c], w, a),
+                                  FEDAVG_TOL, FEDAVG_TOL,
+                                  f"fedavg full {label}"))
+    del got
+
+    def plain_fedavg():
+        for c in cols:
+            ref.fedavg_reduce(u[:, c], w, a)
+
+    wn = ref.masked_normalized_weights(w, a)
+    ms = time_ms(lambda: fedavg.fedavg_reduce(u, w, a))
+    plain = time_ms(plain_fedavg, runs=3)
+    lib = time_ms(lambda: torch.matmul(wn, u))
+    nbytes = 4.0 * n * d + 4.0 * d
+    ops = 2.0 * n * d                      # a multiply-add per value
+    bound = bound_ms(nbytes, ops)
+    row = _row("fedavg_reduce", "csrc/fedavg.cu",
+               "src/repro/kernels/fedavg.py:60", counts, err, ms, plain,
+               bound, lib)
+    row["shape"] = f"{label}: ({n}, {d}) f32"
+    log(f"fedavg_reduce {label} ({n}, {d}) f32: {ms:.3f} ms, "
+        f"{nbytes / ms / 1e6:.1f} GB/s ({100 * bound[0] / ms:.1f}% of HBM "
+        f"peak, bound {bound[0]:.3f} ms); plain {plain:.3f} ms; wn @ "
+        f"updates {lib:.3f} ms; max err {err:.3e}")
+    return row
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -1539,6 +1927,10 @@ def main() -> int:
         check_full_moe_ffn()
         check_small_step_vs_cpu()
         check_small_serve_vs_cpu()
+        check_swarm_goldens()
+        run_swarm_paper_scale()
+        _, swarm_rows = run_swarm_path()
+        rows += swarm_rows
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}",
               file=sys.stderr, flush=True)

@@ -34,43 +34,51 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(type(x), "_fields")
 
 
+# The recursions are module-level functions, not closures: a nested
+# function that calls itself is a reference cycle, which would keep the
+# leaves it collected (full-width tensors) alive until the cyclic
+# garbage collector happened to run.
+
+def _flatten_into(node, leaves: list) -> TreeDef:
+    if node is None:
+        return _NONE
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return TreeDef("dict", keys,
+                       tuple(_flatten_into(node[k], leaves) for k in keys))
+    if _is_namedtuple(node):
+        return TreeDef("namedtuple", type(node),
+                       tuple(_flatten_into(c, leaves) for c in node))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return TreeDef(kind, None,
+                       tuple(_flatten_into(c, leaves) for c in node))
+    leaves.append(node)
+    return _LEAF
+
+
 def flatten(tree) -> tuple[list, TreeDef]:
     leaves: list = []
+    treedef = _flatten_into(tree, leaves)
+    return leaves, treedef
 
-    def rec(node) -> TreeDef:
-        if node is None:
-            return _NONE
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return TreeDef("dict", keys, tuple(rec(node[k]) for k in keys))
-        if _is_namedtuple(node):
-            return TreeDef("namedtuple", type(node),
-                           tuple(rec(c) for c in node))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return TreeDef(kind, None, tuple(rec(c) for c in node))
-        leaves.append(node)
-        return _LEAF
 
-    return leaves, rec(tree)
+def _unflatten_from(td: TreeDef, it):
+    if td.kind == "leaf":
+        return next(it)
+    if td.kind == "none":
+        return None
+    kids = [_unflatten_from(c, it) for c in td.children]
+    if td.kind == "dict":
+        return dict(zip(td.aux, kids))
+    if td.kind == "namedtuple":
+        return td.aux(*kids)
+    return kids if td.kind == "list" else tuple(kids)
 
 
 def unflatten(treedef: TreeDef, leaves) -> object:
     it = iter(leaves)
-
-    def rec(td: TreeDef):
-        if td.kind == "leaf":
-            return next(it)
-        if td.kind == "none":
-            return None
-        kids = [rec(c) for c in td.children]
-        if td.kind == "dict":
-            return dict(zip(td.aux, kids))
-        if td.kind == "namedtuple":
-            return td.aux(*kids)
-        return kids if td.kind == "list" else tuple(kids)
-
-    out = rec(treedef)
+    out = _unflatten_from(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree structure holds")
     return out
