@@ -128,7 +128,36 @@ and imports nothing of the JAX package:
       peak memory, and times ``fedavg_reduce`` over all 16 rows
       (566,231,040 columns) beside its bound, the plain version by
       slices and ``wn @ updates``;
-9. prints one ``{"kernels": [...]}`` line and, last,
+9. the event engine (``repro_torch.net``, ``run_event_paths``; no
+   kernel build), whose max-min fair-share solves run in torch float64
+   on the card:
+   a. the card's ``maxmin_rates`` and ``transport`` against their numpy
+      plain versions on tests/test_net.py's small cases, seeded
+      heterogeneous cases (zero-capacity links, a tail truncated at 2
+      passes, ``quantum_frac`` 0) and the first 20 transport calls of
+      the n 100 round below: chunk_flow and n_solves exact, rates and
+      instants within 1e-9, the largest gap logged;
+   b. slot/event parity (n 60, K 64, no tracker RTT): the event
+      engine's chunk and slot columns equal the slot engine's;
+   c. the warm-up share at the paper's scale (``EVENT_WARM_NS``; K 206,
+      RESIDENTIAL links and ``RESIDENTIAL_NET``, fluid BitTorrent):
+      t_warm_s, t_round_s and the share equal the JAX package's
+      committed numbers at their rounding, Eq. 1 and the legality
+      replay on the event trace;
+   d. Fig. 8 at n 50 (``FIG8_MODELS``; 4 MiB pieces, DATACENTER links,
+      ``DATACENTER_NET``): BitTorrent only and FLTorrent, the overhead,
+      share, control and spray seconds equal the committed ones; the
+      first model's FLTorrent round's transport calls replayed through
+      the card and through the numpy plain version on the host, timed;
+   e. the time-domain efficiency at n 100 (``warmup_time_bounds``);
+   f. benchmarks/bench_obs.py's recorded two-round n 100 session: its
+      JSONL and Perfetto trace written, validated and counted (238
+      rows, 21,971 flows, 22,113 events), the report within 1e-6 of
+      each round's metrics; benchmarks/bench_session.py's churn row;
+   each round's host seconds, the seconds inside the fair-share solves
+   (a synchronised timer) and the solves and microseconds a solve;
+10. prints one ``{"event_paths": {...}}`` line with those times, one
+   ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line is printed.  With
@@ -1902,6 +1931,465 @@ def fedavg_row(u, w, a, counts, label, cols_width) -> dict:
 
 
 # ----------------------------------------------------------------------
+# the event engine (repro_torch.net): fair-share solves on the card
+# ----------------------------------------------------------------------
+
+# The reference numbers are the JAX package's, as committed:
+# results/bench/BENCH_net.json's warm_share rows (n 100 and 200) and
+# results/bench/fig8_llm_scale.json's rows; n 500's share (0.1041), the
+# efficiency at n 100 and the recorded session's counts come from the
+# JAX package's bench_net.py, bench_obs.py and bench_session.py
+# functions at this tree (the committed BENCH_net.json time_domain row
+# is its --quick n 60 point, 0.9802).  Each is held at its committed
+# rounding: seconds to 0.1, shares to 4 places, overheads to 2.
+EVENT_TOL = 1e-9                # fair-share on the card vs plain, rtol/atol
+EVENT_WARM_NS = (100, 200)      # warm-up share rounds run
+WARM_SHARE_REF = {100: (242.4, 2540.4, 0.0954),     # t_warm_s, t_round_s,
+                  200: (544.4, 5337.4, 0.1020),     # warmup_share_s
+                  500: (1370.3, 13165.3, 0.1041)}
+FIG8_CHUNK = 4 * 2**20          # fig8_llm_scale.py: 4 MiB pieces, n 50
+FIG8_N = 50
+FIG8_MODELS = ("Gemma-7B",)     # pairs run (Llama-3.3-70B: PERF.md)
+FIG8_REF = {   # bf16 bytes; chunks, BT-only s, FLTorrent s, overhead %,
+    # warm-up share, control s, spray s
+    "Gemma-7B": (7e9 * 2, 3338, 782.0, 837.1, 7.04, 0.1434, 43.4, 3.3),
+    "Llama-3.3-70B": (70e9 * 2, 33379, 7826.0, 8375.2, 7.02, 0.142,
+                      429.1, 32.7)}
+EFFICIENCY_REF = (0.9654, 200.9, 208.1)   # efficiency, lb_s, realized_s
+OBS_REF = (238, 21971, 22113)   # rows, flows in flow rows, Perfetto events
+OBS_REPORT_TOL = 1e-6           # bench_obs.py's report bound
+CHURN_REF = (0.7025, 0.8896, 0.0793, 0)   # persistence, participation,
+#                                         warm-up share, failed-open rounds
+FAIRSHARE_RECORDED = 20         # first transport calls of the n 100 round
+
+
+class FairshareTimer:
+    """Wraps the event engine's ``transport`` and ``maxmin_rates`` (the
+    names ``repro_torch.net.engine`` calls) with a synchronised host
+    timer; records the first ``keep`` transport calls' arguments."""
+
+    def __init__(self, keep: int = 0):
+        self.keep = keep
+        self.calls: list = []
+        self.seconds = 0.0
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.net import engine
+        self._mod = engine
+        self._orig = (engine.transport, engine.maxmin_rates)
+
+        def timed(fn, record):
+            def wrapper(*args, **kw):
+                if record and len(self.calls) < self.keep:
+                    self.calls.append((args, dict(kw)))
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                return out
+            return wrapper
+
+        engine.transport = timed(self._orig[0], True)
+        engine.maxmin_rates = timed(self._orig[1], False)
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.transport, self._mod.maxmin_rates = self._orig
+        return False
+
+
+def event_round(cfg, link_model, net, device=None, keep: int = 0,
+                **sim_kw):
+    """One event round under a recorder and a :class:`FairshareTimer`;
+    returns the simulator, the result and its timings."""
+    from repro_torch import obs
+    from repro_torch.core.simulator import RoundSimulator
+
+    sim = RoundSimulator(cfg, link_model, time_engine="event", net=net,
+                         device=device, **sim_kw)
+    with obs.recording() as rec, FairshareTimer(keep) as ft:
+        t0 = time.perf_counter()
+        res = sim.run()
+        host_s = time.perf_counter() - t0
+    m = {k: rec.metrics[k]["value"] for k in (
+        "fairshare.transport_calls", "fairshare.solves",
+        "fairshare.maxmin_calls") if k in rec.metrics}
+    solves = int(m.get("fairshare.maxmin_calls", 0))
+    return sim, res, {"host_s": host_s, "fairshare_s": ft.seconds,
+                      "transport_calls": int(
+                          m.get("fairshare.transport_calls", 0)),
+                      "solves": solves,
+                      "us_per_solve": 1e6 * ft.seconds / max(solves, 1),
+                      "recorded": ft.calls}
+
+
+def _fairshare_gap(got, want, what: str) -> float:
+    """Exact chunk_flow and n_solves, finish and chunk_end to EVENT_TOL;
+    the largest gap."""
+    import numpy as np
+    check(np.array_equal(got.chunk_flow, want.chunk_flow),
+          f"{what}: chunk_flow differs")
+    check(got.n_solves == want.n_solves,
+          f"{what}: n_solves {got.n_solves} != {want.n_solves}")
+    fin = np.isfinite(want.finish)
+    check(np.array_equal(np.isfinite(got.finish), fin),
+          f"{what}: finite finish instants differ")
+    gap = 0.0
+    for g, w in ((got.finish[fin], want.finish[fin]),
+                 (got.chunk_end, want.chunk_end)):
+        ok = np.abs(g - w) <= EVENT_TOL + EVENT_TOL * np.abs(w)
+        check(bool(ok.all()), f"{what}: instants beyond {EVENT_TOL}")
+        gap = max(gap, float(np.max(np.abs(g - w), initial=0.0)))
+    return gap
+
+
+def check_fairshare(recorded, device=None) -> None:
+    """The card's fair-share solves against the numpy plain versions:
+    tests/test_net.py's small cases, seeded heterogeneous cases (links
+    over six decades, zero-capacity links, a tail truncated at 2 passes,
+    ``quantum_frac`` 0) and ``recorded`` transport calls of a real round
+    (argument tuples)."""
+    import numpy as np
+
+    from repro_torch.net import fairshare as fs
+    rate_cases = [([0, 0, 0], [1, 2, 3], [9.0] * 4, [100.0] * 4, 16),
+                  ([0, 0], [1, 2], [10.0, 100.0, 100.0],
+                   [100.0, 2.0, 100.0], 16)]
+    flow_cases = [([0, 1], [2, 2], [5, 3], 10.0, [10.0] * 3,
+                   [10.0, 10.0, 8.0], 1 / 64),
+                  (list(range(4)), [4] * 4, [6] * 4, 2.0, [100.0] * 5,
+                   [12.0] * 5, 1 / 64)]
+    for seed in range(12):
+        rng = np.random.default_rng(seed)
+        n, f = int(rng.integers(2, 80)), int(rng.integers(1, 600))
+        src = rng.integers(0, n, f)
+        dst = (src + 1 + rng.integers(0, n - 1, f)) % n
+        up = rng.uniform(1.0, 50.0, n) * 10.0 ** rng.integers(0, 6, n)
+        down = rng.uniform(1.0, 50.0, n) * 10.0 ** rng.integers(0, 6, n)
+        if seed % 3 == 0:
+            up[src[0]] = 0.0
+            down[dst[-1]] = 0.0
+        rate_cases.append((src, dst, up, down, 2 if seed % 2 else 16))
+        flow_cases.append((src, dst, rng.integers(1, 9, f), 1000.0, up,
+                           down, 0.0 if seed % 4 == 1 else 1 / 64))
+    gap = 0.0
+    for i, (src, dst, up, down, passes) in enumerate(rate_cases):
+        a = [np.asarray(x) for x in (src, dst, up, down)]
+        got = fs.maxmin_rates(*a, passes, device=device)
+        want = fs.maxmin_rates_plain(*a, passes)
+        err = np.abs(got - want)
+        check(bool((err <= EVENT_TOL + EVENT_TOL * np.abs(want)).all()),
+              f"maxmin case {i}: rates beyond {EVENT_TOL}")
+        gap = max(gap, float(err.max(initial=0.0)))
+    for i, (src, dst, cnt, cb, up, down, qf) in enumerate(flow_cases):
+        a = [np.asarray(x) for x in (src, dst, cnt)]
+        b = [np.asarray(x) for x in (up, down)]
+        gap = max(gap, _fairshare_gap(
+            fs.transport(*a, cb, *b, quantum_frac=qf, device=device),
+            fs.transport_plain(*a, cb, *b, quantum_frac=qf),
+            f"transport case {i}"))
+    for i, (args, kw) in enumerate(recorded):
+        gap = max(gap, _fairshare_gap(
+            fs.transport(*args, **kw),
+            fs.transport_plain(*args, quantum_frac=kw["quantum_frac"]),
+            f"recorded transport call {i}"))
+    log(f"fair-share on the card vs the numpy plain version: "
+        f"{len(rate_cases)} max-min cases, {len(flow_cases)} transport "
+        f"cases and {len(recorded)} recorded calls of the n 100 round; "
+        f"chunk_flow and n_solves exact; largest gap {gap:.3e} "
+        f"(tolerance {EVENT_TOL})")
+
+
+def check_counts_parity(device=None) -> None:
+    """bench_net.py::counts_parity: n 60, K 64, no tracker RTT; the
+    event engine's chunk and slot columns equal the slot engine's."""
+    import numpy as np
+
+    from repro_torch.core import SwarmConfig
+    from repro_torch.core.simulator import RoundSimulator
+    from repro_torch.net import NetConfig
+    cfg = SwarmConfig(n=60, chunks_per_update=64, s_max=20_000, seed=0)
+    rs = RoundSimulator(cfg).run()
+    re = RoundSimulator(cfg, time_engine="event",
+                        net=NetConfig(tracker_rtt_s=0.0),
+                        device=device).run()
+    for k in ("chunk", "slot"):
+        check(np.array_equal(rs.log[k], re.log[k]),
+              f"counts parity: the event engine's {k} column differs")
+    log(f"slot/event schedule parity (n 60, K 64): {len(re.log)} "
+        "transfers equal, chunk and slot columns")
+
+
+def _time_line(label: str, t: dict) -> str:
+    return (f"{label}: host {t['host_s']:.2f} s, of it fair-share "
+            f"{t['fairshare_s']:.2f} s ({t['transport_calls']} transport "
+            f"calls, {t['solves']} solves, {t['us_per_solve']:.1f} us a "
+            "solve)")
+
+
+def run_warm_share(n: int, device=None, keep: int = 0):
+    """bench_net.py::warm_share_sweep at one n: K 206, RESIDENTIAL,
+    RESIDENTIAL_NET, fluid BitTorrent, seed 0; held to the reference,
+    Eq. 1 and the legality replay on the event trace."""
+    from repro_torch.core import SwarmConfig, privacy
+    from repro_torch.core.capacities import RESIDENTIAL
+    from repro_torch.net import RESIDENTIAL_NET
+    cfg = SwarmConfig(n=n, chunks_per_update=206, s_max=50_000, seed=0)
+    _, res, t = event_round(cfg, RESIDENTIAL, RESIDENTIAL_NET, device,
+                            keep, bt_mode="fluid")
+    m = res.metrics
+    got = (round(m.t_warm_s, 1), round(m.t_round_s, 1),
+           round(m.warmup_share_s, 4))
+    check(got == WARM_SHARE_REF[n],
+          f"n {n}: (t_warm_s, t_round_s, share) {got} != "
+          f"{WARM_SHARE_REF[n]}")
+    check(privacy.check_eq1(res.log, cfg.owner_throttle, cfg.k_gate),
+          f"n {n}: a warm-up transfer breaks Eq. 1 on the event trace")
+    replay_legality(cfg, res, check_tau=True)
+    log(f"warm-up share n {n}, K 206: t_warm_s {m.t_warm_s:.1f}, "
+        f"t_round_s {m.t_round_s:.1f}, share {m.warmup_share_s:.4f}, "
+        f"control_s {m.control_s:.1f}, spray_s {m.t_spray_s:.1f}; Eq. 1 "
+        f"and the log legal; " + _time_line("time", t))
+    return got, t
+
+
+def run_fig8(name: str, device=None, keep: int = 0):
+    """fig8_llm_scale.py's pair for one model at n 50: BitTorrent only
+    (every defence off) and FLTorrent, DATACENTER, DATACENTER_NET."""
+    from repro_torch.core import SwarmConfig
+    from repro_torch.core.capacities import DATACENTER
+    from repro_torch.net import DATACENTER_NET
+    nbytes, *ref = FIG8_REF[name]
+    K = int(-(-nbytes // FIG8_CHUNK))
+    common = dict(n=FIG8_N, chunks_per_update=K, chunk_bytes=FIG8_CHUNK,
+                  s_max=10**7, seed=0, min_degree=min(FIG8_N - 1, 10))
+    base = SwarmConfig(**common, enable_gating=False,
+                       enable_preround=False, enable_timelag=False,
+                       enable_nonowner_first=False,
+                       warmup_threshold_pct=0.0)
+    _, b, tb = event_round(base, DATACENTER, DATACENTER_NET, device,
+                           bt_mode="fluid")
+    _, f, tf = event_round(SwarmConfig(**common), DATACENTER,
+                           DATACENTER_NET, device, keep, bt_mode="fluid")
+    bm, fm = b.metrics, f.metrics
+    ovh = 100 * (fm.t_round_s - bm.t_round_s) / bm.t_round_s
+    got = (K, round(bm.t_round_s, 1), round(fm.t_round_s, 1),
+           round(ovh, 2), round(fm.warmup_share_s, 4),
+           round(fm.control_s, 1), round(fm.t_spray_s, 1))
+    check(list(got) == ref, f"Fig. 8 {name}: {got} != {tuple(ref)}")
+    log(f"Fig. 8 {name} (n {FIG8_N}, K {K}): BitTorrent only "
+        f"{bm.t_round_s:.1f} s, FLTorrent {fm.t_round_s:.1f} s, overhead "
+        f"{ovh:+.2f}%, warm-up share {fm.warmup_share_s:.4f}, control_s "
+        f"{fm.control_s:.1f}, spray_s {fm.t_spray_s:.1f}; "
+        + _time_line("BT-only", tb) + "; " + _time_line("FLTorrent", tf))
+    return got, tb, tf
+
+
+def replay_fig8_calls(calls, device=None) -> dict:
+    """The recorded transport calls of a round through the card and
+    through the numpy plain version on the host; equal, and timed."""
+    import torch
+
+    from repro_torch.net import fairshare as fs
+    t0 = time.perf_counter()
+    got = [fs.transport(*a, **kw) for a, kw in calls]
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = [fs.transport_plain(*a, quantum_frac=kw["quantum_frac"])
+            for a, kw in calls]
+    plain_s = time.perf_counter() - t0
+    gap = max((_fairshare_gap(g, w, f"replayed call {i}")
+               for i, (g, w) in enumerate(zip(got, want))), default=0.0)
+    solves = sum(w.n_solves for w in want)
+    chunks = max((int(a[2].sum()) for a, _ in calls), default=0)
+    prof = profile_fairshare(calls[:PROFILED_CALLS],
+                             sum(w.n_solves for w in want[:PROFILED_CALLS]))
+    log(f"Gemma-7B's {len(calls)} transport calls replayed ({solves} "
+        f"solves, up to {chunks} chunks a call): card {card_s:.3f} s, "
+        f"numpy plain version on the host {plain_s:.3f} s "
+        f"({plain_s / max(card_s, 1e-9):.2f}x); largest gap {gap:.3e}; "
+        f"the first {PROFILED_CALLS} calls under torch.profiler: "
+        f"{prof['launches_per_solve']:.0f} kernel launches and "
+        f"{prof['syncs_per_solve']:.1f} device-to-host copies a solve, "
+        f"{prof['device_us_per_solve']:.1f} us of device time a solve in "
+        f"{prof['wall_us_per_solve']:.1f} us of wall time (device busy "
+        f"{100 * prof['busy']:.1f}%)")
+    return {"calls": len(calls), "solves": solves, "card_s": card_s,
+            "plain_s": plain_s, "profile": prof}
+
+
+PROFILED_CALLS = 8              # replayed calls traced by torch.profiler
+
+
+def profile_fairshare(calls, solves: int) -> dict:
+    """Trace ``calls`` transport calls on the card: kernel launches and
+    device-to-host copies (``cudaLaunchKernel``, ``cudaMemcpyAsync``
+    runtime calls) and device time a solve, and the device's busy share
+    of the traced wall time (the profiler's own cost included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.net import fairshare as fs
+    cuda = torch.cuda.is_available()      # False: a CPU rehearsal
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        t0 = time.perf_counter()
+        for a, kw in calls:
+            fs.transport(*a, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+    dev_us, launches, copies = 0.0, 0, 0
+    for e in prof.key_averages():
+        dev_us += (getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0) or 0)
+        if e.key == "cudaLaunchKernel":
+            launches += e.count
+        elif e.key == "cudaMemcpyAsync":
+            copies += e.count
+    k = max(solves, 1)
+    return {"launches_per_solve": launches / k,
+            "syncs_per_solve": copies / k,
+            "device_us_per_solve": dev_us / k,
+            "wall_us_per_solve": 1e6 * wall / k,
+            "busy": dev_us / max(1e6 * wall, 1e-9)}
+
+
+def check_time_domain_efficiency(device=None) -> None:
+    """bench_net.py::time_domain_efficiency at n 100: realized warm-up
+    transport seconds against the per-cycle congestion bound
+    (``warmup_time_bounds``), zero latency."""
+    from repro_torch.core import SwarmConfig
+    from repro_torch.core.capacities import RESIDENTIAL
+    from repro_torch.core.maxflow import warmup_time_bounds
+    from repro_torch.net import NetConfig
+    cfg = SwarmConfig(n=100, chunks_per_update=206, s_max=50_000, seed=0)
+    sim, res, t = event_round(cfg, RESIDENTIAL, NetConfig(), device,
+                              bt_mode="fluid")
+    lbs, real = warmup_time_bounds(res.log, cfg.chunk_bytes, sim.up_bps,
+                                   sim.down_bps)
+    eff = float(lbs.sum() / max(real.sum(), 1e-12))
+    got = (round(eff, 4), round(float(lbs.sum()), 1),
+           round(float(real.sum()), 1))
+    check(got == EFFICIENCY_REF,
+          f"time-domain efficiency {got} != {EFFICIENCY_REF}")
+    log(f"time-domain efficiency n 100 (GFF): {eff:.4f} of the bound "
+        f"({lbs.sum():.1f} s bound, {real.sum():.1f} s realized); "
+        + _time_line("time", t))
+
+
+def check_sessions(device=None) -> None:
+    """bench_obs.py's recorded session and bench_session.py's churn row.
+
+    The recorded session: n 100, K 8, min degree 6, s_max 3000, the
+    event engine on RESIDENTIAL_NET with an evolving overlay, two rounds
+    cut at a quorum of 90 with the tail drained at the boundary; its
+    JSONL and Perfetto trace written to a temporary directory,
+    validated, counted against the reference, and the report held to
+    each round's metrics.  The churn row: n 100, K 64, s_max 100,000,
+    leave 0.1, 2.5 joins a boundary, rejoin after 2, fluid BitTorrent,
+    the slot engine, 3 rounds."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core import ChurnModel, SwarmConfig, SwarmSession
+    from repro_torch.net import RESIDENTIAL_NET
+    cfg = SwarmConfig(n=100, chunks_per_update=8, min_degree=6,
+                      s_max=3000, seed=0)
+    t0 = time.perf_counter()
+    with obs.recording(meta={"bench": "obs", "n": 100,
+                             "rounds": 2}) as rec, FairshareTimer() as ft:
+        ses = SwarmSession(cfg, time_engine="event", net=RESIDENTIAL_NET,
+                           evolve_overlay=True, device=device)
+        ses.run(2, quorum_k=90, tail_mode="drain")
+    host_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "obs_round.jsonl"
+        n_rows = obs.write_jsonl(rec, path)
+        rows = obs.read_jsonl(path)
+        bad = obs.validate_rows(rows)
+        check(not bad, f"recorded session: JSONL violations {bad[:3]}")
+        n_events = obs.write_perfetto(rows, Path(tmp) / "trace.json")
+        trace = json.loads((Path(tmp) / "trace.json").read_text())
+    check(len(trace["traceEvents"]) == n_events
+          and {0, 1, 2} <= {e["pid"] for e in trace["traceEvents"]},
+          "recorded session: the Perfetto trace does not load")
+    flows = sum(r["n"] for r in rows if r.get("kind") == "flows")
+    got = (n_rows, flows, n_events)
+    check(got == OBS_REF, f"recorded session: (rows, flows, Perfetto "
+          f"events) {got} != {OBS_REF}")
+    summary = obs.summarize(rows)
+    wc = ses.wall_clock()
+    err = max(abs(summary["rounds"][r][k] - wc[k][r]) for r in range(2)
+              for k in ("t_warm_s", "t_round_s", "warmup_share_s"))
+    check(err < OBS_REPORT_TOL,
+          f"recorded session: report off its metrics by {err:.3e}")
+    log(f"recorded session (n 100, 2 event rounds, quorum 90, drain): "
+        f"{n_rows} rows, {flows} flows, {n_events} Perfetto events, "
+        f"valid; report within {err:.2e} of the metrics; host "
+        f"{host_s:.2f} s, of it fair-share {ft.seconds:.2f} s")
+    cfg = SwarmConfig(n=100, chunks_per_update=64, s_max=100_000, seed=0)
+    ses = SwarmSession(cfg, churn=ChurnModel(
+        leave_prob=0.1, join_rate=0.1 * 100 / 4, rejoin_after=2),
+        bt_mode="fluid")
+    t0 = time.perf_counter()
+    recs = ses.run(3)
+    got = (round(ses.edge_persistence(), 4),
+           round(float(ses.participation().mean()), 4),
+           round(float(np.mean([r.result.metrics.warmup_share
+                                for r in recs])), 4),
+           sum(r.result.metrics.failed_open for r in recs))
+    check(got == CHURN_REF, f"churn row {got} != {CHURN_REF}")
+    log(f"churn row (n 100, leave 0.1, 3 slot rounds): edge persistence "
+        f"{got[0]}, participation {got[1]}, warm-up share {got[2]}, "
+        f"{got[3]} failed-open rounds; host "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def run_event_paths(device=None) -> dict:
+    """The event engine's phase: fair-share on the card against its
+    plain version, slot/event parity, the warm-up share rounds
+    (``EVENT_WARM_NS``), Fig. 8's pairs (``FIG8_MODELS``) with the
+    FLTorrent round's transport calls replayed on the host, the
+    time-domain efficiency, the recorded session and the churn row.
+    ``device`` None is the card; ``"cpu"`` rehearses on the CPU.
+    Returns the times for the summary line."""
+    t_phase = time.perf_counter()
+    out = {"rounds": {}}
+    _, t = run_warm_share(EVENT_WARM_NS[0], device, FAIRSHARE_RECORDED)
+    check(len(t["recorded"]) == FAIRSHARE_RECORDED,
+          f"only {len(t['recorded'])} transport calls recorded")
+    out["rounds"][f"n{EVENT_WARM_NS[0]}"] = t
+    check_fairshare(t.pop("recorded"), device)
+    check_counts_parity(device)
+    for n in EVENT_WARM_NS[1:]:
+        _, t = run_warm_share(n, device)
+        t.pop("recorded")
+        out["rounds"][f"n{n}"] = t
+    for i, name in enumerate(FIG8_MODELS):
+        _, tb, tf = run_fig8(name, device, keep=10**6 if i == 0 else 0)
+        calls = tf.pop("recorded")
+        tb.pop("recorded")
+        out["rounds"][f"{name} BT-only"] = tb
+        out["rounds"][f"{name} FLTorrent"] = tf
+        if i == 0:
+            out["replay"] = replay_fig8_calls(calls, device)
+    check_time_domain_efficiency(device)
+    check_sessions(device)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"event phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -1931,12 +2419,14 @@ def main() -> int:
         run_swarm_paper_scale()
         _, swarm_rows = run_swarm_path()
         rows += swarm_rows
+        event = run_event_paths()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}",
               file=sys.stderr, flush=True)
         return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
+    log(json.dumps({"event_paths": event, "card": card}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

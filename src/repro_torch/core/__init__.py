@@ -1,14 +1,20 @@
 """FLTorrent core — the paper's contribution, ported beside the JAX
 package's ``core/``.
 
-Public API (the JAX package's, minus the multi-round session):
+Public API (the JAX package's):
 
 * ``SwarmConfig`` / ``simulate_round`` — one privacy-hardened
-  dissemination round (spray -> warm-up -> BitTorrent -> deadline) on
-  the synchronous slot clock.  The continuous-time event engine
-  (``time_engine="event"``) and the jitted slot engine
-  (``scheduler_impl="jit"``) are not ported yet and raise
+  dissemination round (spray -> warm-up -> BitTorrent -> deadline),
+  on either time engine: the synchronous slot clock or the
+  continuous-time event transport of :mod:`repro_torch.net`
+  (``simulate_round(cfg, time_engine="event")`` — wall-clock seconds,
+  fair-share flows solved in float64 on the GPU, or on the CPU with
+  ``device="cpu"``; per-transfer ``t_start``/``t_end``).  The jitted
+  slot engine (``scheduler_impl="jit"``) is not ported yet and raises
   ``NotImplementedError`` (ROADMAP.md queue 1).
+* ``SwarmSession`` / ``ChurnModel`` — the persistent multi-round swarm:
+  cross-round churn (leave/join/rejoin at round boundaries), evolving
+  overlay with incremental edge repair, capacity persistence (§III-E).
 * ``policy`` — the SchedulerPolicy plugin API: SlotView (visibility-
   scoped per-slot observation), register_policy/get_policy registry;
   ``SwarmConfig.scheduler`` accepts a name or an instance.
@@ -17,7 +23,8 @@ Public API (the JAX package's, minus the multi-round session):
   registered policies over two interchangeable slot engines, ``loop``
   and ``batched`` (+ max-flow stage upper bound).
 * ``trace`` — typed columnar TransferTrace: the observation contract
-  consumed by attacks/privacy/audit.
+  consumed by attacks/privacy/audit (round/phase slicing, observer
+  masking, cross-round concatenation via ``SwarmSession.trace()``).
 * ``privacy`` — Eq. (1)-(5) unlinkability bounds + empirical checks.
 * ``attacks`` — vectorized Sequential/Amount Greedy + Clustering, the
   cross-round persistent-neighbor linkage adversary, and the timing
@@ -29,24 +36,26 @@ Public API (the JAX package's, minus the multi-round session):
 
 The host-side modules are copies of the JAX package's, with the same
 numpy rng streams, so a seed gives the same schedule byte for byte.
-``SwarmSession``, ``ChurnModel``, ``SessionRound``, ``ChurnAwareSpray``
-and ``SprayPlan`` come with ``session.py`` in a later slice.
 """
 from . import (aggregation, attacks, audit, bittorrent, byzantine,
                capacities, chunking, maxflow, overlay, policy, privacy,
-               schedulers, simulator, state, trace, types)
+               schedulers, session, simulator, state, trace, types)
 from .policy import (SchedulerPolicy, SlotView, VisibilityError,
                      get_policy, policy_names, register_policy)
+from .session import (ChurnModel, ChurnAwareSpray, SessionRound,
+                      SprayPlan, SwarmSession)
 from .simulator import RoundResult, RoundSimulator, simulate_round
 from .trace import TransferTrace
 from .types import RoundMetrics, SwarmConfig
 
 __all__ = [
     "SwarmConfig", "RoundMetrics", "RoundSimulator", "RoundResult",
+    "SwarmSession", "ChurnModel", "SessionRound",
     "SchedulerPolicy", "SlotView", "VisibilityError", "get_policy",
     "policy_names", "register_policy", "TransferTrace",
+    "ChurnAwareSpray", "SprayPlan",
     "simulate_round", "aggregation", "attacks", "audit", "bittorrent",
     "byzantine", "capacities", "chunking", "maxflow", "overlay",
-    "policy", "privacy", "schedulers", "simulator", "state",
+    "policy", "privacy", "schedulers", "session", "simulator", "state",
     "trace", "types",
 ]

@@ -11,12 +11,12 @@ contract (``time_engine=``):
 * ``"slot"``  — the historical synchronous world: every stage costs one
   slot of ``cfg.slot_seconds``, capacities are integer chunks/slot, and
   the trace carries slot-boundary time stamps.
-* ``"event"`` — the continuous-time transport of the JAX package's
-  ``net/`` (not ported yet: it raises ``NotImplementedError`` here; the
-  ``engine`` branches below stay for it): the SAME policies issue the
-  SAME schedules (same rng stream, same integer budgets), but each
-  directive cycle's transfers become max-min fair-share flows over raw
-  bytes/s links, every trace row gets real
+* ``"event"`` — the continuous-time transport of :mod:`repro_torch.net`:
+  the SAME policies issue the SAME schedules (same rng stream, same
+  integer budgets), but each directive cycle's transfers become max-min
+  fair-share flows over raw bytes/s links (solved in float64 on
+  ``device``, the GPU unless the caller names the CPU), every trace row
+  gets real
   ``t_start``/``t_end`` instants, warm-up cycles pay tracker directive
   RTTs, and the metrics report realized wall-clock seconds
   (``t_warm_s``/``t_round_s``/``warmup_share_s``).
@@ -35,7 +35,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .. import obs
+from .. import obs, resolve_device
+from ..net import EventEngine, NetConfig
 
 from . import capacities as cap
 from .bittorrent import bt_exact_slot, run_bt_fluid
@@ -46,13 +47,6 @@ from .policy import SlotView, get_policy
 from .state import SwarmState
 from .trace import TransferTrace
 from .types import RoundMetrics, SwarmConfig
-
-
-# The continuous-time event transport (the JAX package's ``net/``) has
-# no port yet: ROADMAP.md queue 1 item 3.
-_NO_EVENT = ("time_engine='event' is not ported to repro_torch yet "
-             "(it needs the net/ package, ROADMAP.md queue 1 item 3); "
-             "use time_engine='slot'")
 
 
 def _zero_clock() -> float:
@@ -139,8 +133,9 @@ class RoundSimulator:
         rng: np.random.Generator | None = None,
         spray_plan=None,
         time_engine: str = "slot",      # "slot" | "event"
-        net=None,                       # repro.net.NetConfig (event only)
+        net=None,                       # net.NetConfig (event only)
         background=None,                # (snd, rcv, meta) carried tail
+        device=None,                    # fair-share solves (event only)
     ):
         """``overlay``/``up``/``down``/``rng`` let a :class:`SwarmSession`
         inject a persistent population (evolving topology, sticky
@@ -150,9 +145,13 @@ class RoundSimulator:
         in that order, so existing seeds reproduce bit-identically.
 
         ``time_engine="event"`` swaps the synchronous slot clock for the
-        continuous-time transport of :mod:`repro.net` (same schedules,
-        wall-clock seconds, fair-share flow timing); ``net`` is its
-        :class:`~repro.net.NetConfig`.  ``up_bps``/``down_bps`` inject
+        continuous-time transport of :mod:`repro_torch.net` (same
+        schedules, wall-clock seconds, fair-share flow timing); ``net``
+        is its :class:`~repro_torch.net.NetConfig` and ``device`` the
+        torch device of its fair-share solves, resolved with
+        :func:`repro_torch.resolve_device` only for the event engine
+        (the GPU unless the caller names the CPU; no GPU and no device
+        raises).  ``up_bps``/``down_bps`` inject
         raw link rates alongside the integer budgets (sessions persist
         them); when omitted they are sampled from ``link_model`` via the
         same rng draws that produce the slot budgets, so both engines
@@ -160,9 +159,9 @@ class RoundSimulator:
         """
         if time_engine not in ("slot", "event"):
             raise ValueError(f"unknown time_engine {time_engine!r}")
-        if time_engine == "event":
-            raise NotImplementedError(_NO_EVENT)
         self.time_engine = time_engine
+        self.device = (resolve_device(device) if time_engine == "event"
+                       else None)
         self.cfg = cfg
         self.rng = np.random.default_rng(cfg.seed) if rng is None else rng
         self.adj = (random_overlay(cfg.n, cfg.min_degree,
@@ -194,6 +193,8 @@ class RoundSimulator:
                                          / cfg.slot_seconds)
                 self.down_bps = self.down * (cfg.chunk_bytes
                                              / cfg.slot_seconds)
+        if net is None and time_engine == "event":
+            net = NetConfig()
         self.net = net
         self.dropouts = dropouts or {}
         if bt_mode == "auto":
@@ -434,6 +435,14 @@ class RoundSimulator:
                              "quorum_k/tail_mode so the cut has a tail "
                              "path (otherwise it would silently mask)")
         engine = None
+        if self.time_engine == "event":
+            engine = EventEngine(cfg.n, cfg.chunk_bytes, self.up_bps,
+                                 self.down_bps, self.net, cfg.seed,
+                                 device=self.device)
+            if self.background is not None:
+                # Previous generation's tail: contends with this round's
+                # spray/warm-up/BT from t=0 (overlapped dissemination).
+                engine.set_background(*self.background)
         rec = obs.get()
         _clk = _clock
         _t0 = _clk()
@@ -621,6 +630,7 @@ class RoundSimulator:
 
 
 def simulate_round(cfg: SwarmConfig, collect_maxflow: bool = False,
-                   warmup_only: bool = False, **kw) -> RoundResult:
-    return RoundSimulator(cfg, **kw).run(collect_maxflow=collect_maxflow,
-                                         warmup_only=warmup_only)
+                   warmup_only: bool = False, *, device=None,
+                   **kw) -> RoundResult:
+    return RoundSimulator(cfg, device=device, **kw).run(
+        collect_maxflow=collect_maxflow, warmup_only=warmup_only)

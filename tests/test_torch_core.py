@@ -9,7 +9,8 @@ against the JAX package run in this process), whole round results
 n = 16, K = 540 ``DATACENTER`` swarm that ``chip_smoke.py`` aggregates
 on the card, the Eq. 1 to 5 bounds, the max-flow stage bound, a
 Byzantine round, the audit, the policy registry and its visibility
-gate, the recorder, and the two engines not ported yet.
+gate, the recorder, the jitted engine (not ported yet) and the event
+engine's refusal to run on the CPU unless asked.
 """
 import dataclasses
 import hashlib
@@ -360,10 +361,26 @@ def test_jit_engine_is_not_ported(mode):
                      seed=1, scheduler=mode, scheduler_impl="jit")).run()
 
 
-def test_event_engine_is_not_ported():
-    with pytest.raises(NotImplementedError, match="net/"):
-        TSim(TConfig(n=12, chunks_per_update=8, min_degree=4, seed=1),
-             time_engine="event")
+def test_event_engine_refuses_the_cpu_without_a_device(monkeypatch):
+    """No GPU and no ``device``: the event engine raises from
+    ``resolve_device`` before any solve, and never falls back to the
+    CPU or to the numpy plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from repro_torch.core import simulate_round
+    from repro_torch.net import fairshare
+
+    def never(*a, **k):
+        raise AssertionError("a fair-share solve ran")
+
+    for name in ("_maxmin_fill", "_transport_device", "maxmin_rates_plain",
+                 "transport_plain"):
+        monkeypatch.setattr(fairshare, name, never)
+    cfg = TConfig(n=12, chunks_per_update=8, min_degree=4, seed=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate_round(cfg, time_engine="event")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TSim(cfg, time_engine="event", device=None)
     with pytest.raises(ValueError, match="unknown time_engine"):
-        TSim(TConfig(n=12, chunks_per_update=8, min_degree=4, seed=1),
-             time_engine="wall")
+        TSim(cfg, time_engine="wall")
+    assert simulate_round(cfg).metrics.t_round > 0   # slot: no device
