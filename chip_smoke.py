@@ -156,7 +156,38 @@ and imports nothing of the JAX package:
       each round's metrics; benchmarks/bench_session.py's churn row;
    each round's host seconds, the seconds inside the fair-share solves
    (a synchronised timer) and the solves and microseconds a solve;
-10. prints one ``{"event_paths": {...}}`` line with those times, one
+10. the FL stack (``repro_torch.fl``, ``run_fl_paths``; no kernel
+   build: the FL path's FedAvg and gossip are einsums, as in the JAX
+   package), on the card by default, TF32 left at torch's default (the
+   runners turn it off themselves; each aggregate is checked to be made
+   on the card with TF32 off):
+   a. Table II's fast rows (benchmarks/table2_learning.py, fast:
+      synth-cifar, n 10, n_train 4000, n_test 1000, batch 32, lr 0.03,
+      min degree 5) at dir0.1 and iid: the mlp for 6 rounds with CFL,
+      GossipDFL and FLTorrent, the cnn for 3 with CFL and FLTorrent;
+      FLTorrent's accuracy within 1e-3 of CFL's every round, with
+      agreement and every update reconstructed; then FLTorrent on the
+      CPU from the same weights, twice (torch's threads, one thread), and
+      the card held to it: every local SGD step forced from the CPU
+      run's state, the card's median step no more than 4 times as far
+      from the f64 step as the CPU's (TF32 on, the faulty control, must
+      be further), and each round's accuracy within 0.01 up to the first
+      round in which the one-thread run parts from the CPU by more (the
+      mlp at dir0.1 is chaotic in the summation order from round 3 on);
+      round 1's aggregate gap logged beside the one-thread run's; each
+      row and the host seconds logged;
+   b. examples/fl_learning_e2e.py's churn run (n 10, 8 rounds, churn
+      0.25, rejoin after 1): participation and rejoin rounds equal to
+      the JAX package's, stale params seen and caught up, agreement;
+   c. table2_learning.async_frontier(fast=True) on the event engine
+      with its fair-share solves on the card (synth-mnist, n 16, 8
+      rounds, straggler links, ``RESIDENTIAL_NET``): synchronous and
+      round_slots 6 and 8 (buffer 4, staleness 3, the tail carried); K 4
+      and wall_s, the staleness histogram and drops equal the JAX
+      package's (242.6 s; 197.7 s, {1: 94}; 213.5 s, {1: 52}; 0
+      dropped); host and fair-share seconds;
+11. prints one ``{"event_paths": {...}}`` line with those times, one
+   ``{"fl_paths": {...}}`` line with the FL phase's rows and times, one
    ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -2390,6 +2421,437 @@ def run_event_paths(device=None) -> dict:
 
 
 # ----------------------------------------------------------------------
+# the FL stack (repro_torch.fl): the paper's learning runs on the card
+# ----------------------------------------------------------------------
+
+# benchmarks/table2_learning.py's fast configurations and
+# examples/fl_learning_e2e.py's churn run.  The churn run's participation
+# and rejoin rounds are host numpy (the session's stream), taken from the
+# JAX package's run_experiment at this tree; the async frontier's numbers
+# depend only on the swarm, and are the JAX package's
+# table2_learning.async_frontier(fast=True) at this tree (the committed
+# results/bench/table2_learning.json has the same).
+FL_TABLE2 = dict(dataset="synth-cifar", n_clients=10, n_train=4000,
+                 n_test=1000, seed=0, min_degree=5)
+FL_LOCAL = dict(epochs=1, batch_size=32, lr=0.03)
+FL_DISTS = ("dir0.1", "iid")
+FL_ROUNDS = {"mlp": 6, "cnn": 3}
+FL_AGREE_TOL = 1e-3             # FLTorrent against CFL, accuracy a round
+FL_STEP_RATIO = 4.0             # card/CPU median step error against f64
+FL_ACC_TOL = 0.01               # accuracy a round, card against CPU
+FL_CHURN = dict(dataset="synth-cifar", model="mlp", dist="dir0.1",
+                n_clients=10, rounds=8, n_train=3000, n_test=800, seed=0,
+                min_degree=5, churn_rate=0.25, rejoin_after=1)
+FL_CHURN_REF = ([1.0, 0.9, 0.8, 1.0, 1.0, 0.8, 0.9, 0.8],  # participation
+                [2, 3, 3, 6, 6, 7])                         # rejoin rounds
+FL_ASYNC = dict(dataset="synth-mnist", dist="dir0.1", n_clients=16,
+                rounds=8, min_degree=5, n_train=3000, n_test=800, seed=0)
+FL_ASYNC_SLOTS = (None, 6, 8)   # sync, then round_slots 6 and 8
+FL_ASYNC_REF = {None: (4, 242.6, {}, 0),        # K, wall_s[-1] at 0.1 s,
+                6: (4, 197.7, {1: 94}, 0),      # staleness_hist, dropped
+                8: (4, 213.5, {1: 52}, 0)}
+
+
+class RoundTap:
+    """Wraps the synchronous runner's ``make_local_train`` and
+    ``apply_aggregate`` (the names ``repro_torch.fl.runner`` calls) and
+    keeps, for every round that applies an aggregate, the global params
+    and the batching rng's state before the round's first local step,
+    the aggregate as a host vector, the device it lay on and the TF32
+    flags in force."""
+
+    def __enter__(self):
+        import copy
+
+        import numpy as np
+        import torch
+
+        from repro_torch.fl import runner
+        from repro_torch.interop import to_numpy
+        from repro_torch.tree import leaves
+        self._mod = runner
+        self._orig = (runner.make_local_train, runner.apply_aggregate)
+        self.rounds: list[dict] = []
+        self._open = None
+
+        def make(apply_fn, spec):
+            inner = self._orig[0](apply_fn, spec)
+
+            def local_train(params, x, y, rng):
+                if self._open is None:
+                    self._open = {"params": to_numpy(params), "rng":
+                                  copy.deepcopy(rng.bit_generator.state)}
+                return inner(params, x, y, rng)
+            return local_train
+
+        def apply(params, agg):
+            ls = leaves(agg)
+            rd, self._open = self._open, None
+            rd.update(agg=np.concatenate(
+                [x.detach().cpu().numpy().ravel() for x in ls]),
+                device=ls[0].device.type,
+                tf32=(torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32))
+            self.rounds.append(rd)
+            return self._orig[1](params, agg)
+
+        runner.make_local_train, runner.apply_aggregate = make, apply
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.make_local_train, self._mod.apply_aggregate = self._orig
+        return False
+
+
+def step_errors(cfg, rounds: list, device=None,
+                tf32: bool = False) -> tuple[list, list]:
+    """Every local SGD step of the tapped FLTorrent rounds, forced from
+    the CPU run: each round from its tapped global params and batching
+    rng state, each step from the CPU's parameters and momentum before
+    it.  The step's gradient in f32 on the CPU and on ``device``, each
+    against the same step in f64 on the CPU: a step's error is the
+    largest difference over the largest f64 gradient entry of the same
+    leaf, the largest over leaves.  Returns the CPU's and the card's
+    errors, one a step.  ``tf32`` runs the card's steps with TF32 on
+    (the faulty control)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.fl.client import make_sgd_step
+    from repro_torch.fl.models_small import MODELS, true_f32
+    from repro_torch.fl.runner import setup_run
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.tree import flatten
+    cpu, dev = torch.device("cpu"), resolve_device(device)
+    host = setup_run(cfg, cpu, rounds[0]["params"])
+    card = setup_run(cfg, dev, rounds[0]["params"])
+    step = make_sgd_step(MODELS[cfg.model][1], cfg.local)
+    bs = cfg.local.batch_size
+
+    def err(g, ref):
+        return max(float((x.cpu().double() - r).abs().max())
+                   / max(float(r.abs().max()), 1e-300)
+                   for x, r in zip(g, ref))
+
+    err_cpu, err_card = [], []
+    with true_f32():
+        for rd in rounds:
+            rng = np.random.default_rng()
+            rng.bit_generator.state = rd["rng"]
+            for v in range(cfg.n_clients):
+                # local_train's loop (client.py), one step at a time.
+                leaves, td = flatten(params_from_numpy(rd["params"], cpu))
+                mom = [torch.zeros_like(p) for p in leaves]
+                for _ in range(cfg.local.epochs):
+                    order = rng.permutation(len(host.ys[v]))
+                    for i in range(0, len(order), bs):
+                        sl = torch.from_numpy(order[i:i + bs])
+                        if len(sl) < 2:
+                            continue
+                        xb, yb = host.xs[v][sl], host.ys[v][sl]
+                        new, new_mom, g = step(leaves, td, mom, xb, yb)
+                        _, _, g64 = step([p.double() for p in leaves], td,
+                                         [m.double() for m in mom],
+                                         xb.double(), yb)
+                        sd = sl.to(dev)
+                        with (tf32_on() if tf32
+                              else contextlib.nullcontext()):
+                            _, _, gd = step([p.to(dev) for p in leaves],
+                                            td, [m.to(dev) for m in mom],
+                                            card.xs[v][sd], card.ys[v][sd])
+                        err_cpu.append(err(g, g64))
+                        err_card.append(err(gd, g64))
+                        leaves, mom = new, new_mom
+    return err_cpu, err_card
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 matmuls and cuDNN convolutions, as torch allows them."""
+    import torch
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on the CPU with one thread: the same arithmetic as with the
+    default threads, summed in another order."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _fl_config(**kw):
+    from repro_torch.fl import FLConfig, LocalSpec
+    local = kw.pop("local", FL_LOCAL)
+    return FLConfig(local=LocalSpec(**local), **kw)
+
+
+def _fl_params0(model: str, dataset: str):
+    """The port's initial weights for ``model`` (seed 0) as numpy."""
+    import torch
+
+    from repro_torch.fl.models_small import MODELS
+    from repro_torch.interop import to_numpy
+    shape = {"synth-mnist": (28, 28, 1), "synth-cifar": (32, 32, 3)}
+    return to_numpy(MODELS[model][0](torch.Generator().manual_seed(0),
+                                     shape[dataset], 10))
+
+
+def fl_run(method: str, cfg, device, params0):
+    """One ``run_experiment`` under a :class:`RoundTap`; the result, the
+    tap and the host seconds (synchronised)."""
+    import torch
+
+    from repro_torch.fl import run_experiment
+    with RoundTap() as tap:
+        t0 = time.perf_counter()
+        res = run_experiment(method, cfg, device=device, params0=params0)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    check(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in res.accuracy)
+          and len(res.accuracy) == cfg.rounds,
+          f"{method}: accuracies {res.accuracy}")
+    want = "cpu" if device == "cpu" else "cuda"
+    for rd in tap.rounds:
+        check(rd["device"] == want and rd["tf32"] == (False, False),
+              f"{method}: aggregated on {rd['device']} with TF32 flags "
+              f"{rd['tf32']}, not on {want} in true f32")
+    check(len(tap.rounds) == (0 if method == "gossip" else cfg.rounds),
+          f"{method}: {len(tap.rounds)} aggregates applied")
+    return res, tap, host_s
+
+
+def _acc_gaps(a, b) -> list:
+    return [abs(x - y) for x, y in zip(a, b)]
+
+
+def run_table2(model: str, dist: str, device=None) -> dict:
+    """One row of Table II (``FL_TABLE2``): CFL, GossipDFL (mlp only) and
+    FLTorrent on ``device``, FLTorrent's trajectory held to CFL's; then
+    FLTorrent on the CPU from the same weights, and the card held to it.
+
+    Two f32 runs that sum in different orders part at ReLU boundaries (a
+    pre-activation within an ulp of 0 takes the other branch) and then
+    diverge, round by round and within a round; the CPU does so against
+    itself with one thread.  So the card is held step by step
+    (``step_errors``: its median step's gradient no more than
+    ``FL_STEP_RATIO`` times as far from f64 as the CPU's; TF32, the
+    faulty control, must be further), and on the accuracy of every round
+    before the first in which the one-thread run parts from the CPU by
+    more than ``FL_ACC_TOL``.  Round 1's aggregate is logged beside the
+    one-thread run's."""
+    import numpy as np
+    import torch
+    cfg = _fl_config(model=model, dist=dist, rounds=FL_ROUNDS[model],
+                     **FL_TABLE2)
+    params0 = _fl_params0(model, cfg.dataset)
+    methods = ("cfl", "gossip", "fltorrent") if model == "mlp" \
+        else ("cfl", "fltorrent")
+    runs = {m: fl_run(m, cfg, device, params0) for m in methods}
+    flt, cfl = runs["fltorrent"][0], runs["cfl"][0]
+    check(flt.agreement and flt.reconstruct_frac == 1.0,
+          f"{model} {dist}: FLTorrent agreement {flt.agreement}, "
+          f"reconstruct_frac {flt.reconstruct_frac}")
+    gap = max(_acc_gaps(flt.accuracy, cfl.accuracy))
+    check(gap <= FL_AGREE_TOL + 1e-12,
+          f"{model} {dist}: FLTorrent {flt.accuracy} is not CFL "
+          f"{cfl.accuracy} within {FL_AGREE_TOL}")
+    cpu, ctap, cpu_s = fl_run("fltorrent", cfg, "cpu", params0)
+    check(cpu.agreement and cpu.reconstruct_frac == 1.0,
+          f"{model} {dist}: FLTorrent on the CPU disagrees")
+    with one_thread():
+        ctl, ttap, ctl_s = fl_run("fltorrent", cfg, "cpu", params0)
+    t0 = time.perf_counter()
+    e_cpu, e_card = (np.asarray(e) for e in
+                     step_errors(cfg, ctap.rounds, device))
+    steps_s = time.perf_counter() - t0
+    ratio = float(np.median(e_card) / max(np.median(e_cpu), 1e-300))
+    # The faulty control (the card only: the CPU has no TF32): round 1's
+    # steps with TF32 on must fail the gate.
+    if device == "cpu":
+        tf32_ratio = None
+    else:
+        c1, t1 = step_errors(cfg, ctap.rounds[:1], device, tf32=True)
+        tf32_ratio = float(np.median(t1) / max(np.median(c1), 1e-300))
+    agg1 = float(np.max(np.abs(runs["fltorrent"][1].rounds[0]["agg"]
+                               - ctap.rounds[0]["agg"])))
+    ctl_agg1 = float(np.max(np.abs(ttap.rounds[0]["agg"]
+                                   - ctap.rounds[0]["agg"])))
+    card_gaps = _acc_gaps(flt.accuracy, cpu.accuracy)
+    ctl_gaps = _acc_gaps(ctl.accuracy, cpu.accuracy)
+    held = next((r for r, g in enumerate(ctl_gaps) if g > FL_ACC_TOL),
+                cfg.rounds)
+    vs_cpu = {"steps": int(e_card.size),
+              "step_err_cpu_median": float(np.median(e_cpu)),
+              "step_err_card_median": float(np.median(e_card)),
+              "step_err_ratio": ratio,
+              "step_err_card_p90": float(np.quantile(e_card, 0.9)),
+              "step_err_card_max": float(e_card.max()),
+              "steps_s": steps_s, "tf32_control_ratio": tf32_ratio,
+              "agg1_gap": agg1,
+              "control_agg1_gap": ctl_agg1, "acc_gaps": card_gaps,
+              "control_acc_gaps": ctl_gaps, "acc_rounds_held": held,
+              "cpu_host_s": cpu_s, "control_host_s": ctl_s,
+              "threads": torch.get_num_threads(),
+              "cpu_accuracy": cpu.accuracy}
+    row = {m: round(float(np.mean(r.accuracy[-3:])), 4)
+           for m, (r, _, _) in runs.items()}
+    row.update(agreement=bool(flt.agreement),
+               reconstruct_frac=float(flt.reconstruct_frac),
+               flt_cfl_gap=gap,
+               host_s={m: h for m, (_, _, h) in runs.items()},
+               accuracy={m: r.accuracy for m, (r, _, _) in runs.items()},
+               vs_cpu=vs_cpu)
+    log(f"Table II {cfg.dataset} {model} {dist} (n {cfg.n_clients}, "
+        f"{cfg.rounds} rounds): "
+        + ", ".join(f"{m} {row[m]:.4f}" for m in methods)
+        + f" (mean of the last 3 rounds); FLTorrent - CFL at most "
+        f"{gap:.4f} a round, agreement, every update reconstructed; host "
+        + ", ".join(f"{m} {h:.2f} s" for m, h in row["host_s"].items()))
+    log(f"  card vs CPU ({vs_cpu['threads']} threads, {cpu_s:.2f} s): "
+        f"{e_card.size} SGD steps forced from the CPU's state, the "
+        f"gradient's error against f64: median {np.median(e_card):.2e} "
+        f"on the card, {np.median(e_cpu):.2e} on the CPU (ratio "
+        f"{ratio:.2f}; the card's 90th percentile "
+        f"{vs_cpu['step_err_card_p90']:.2e}, largest {e_card.max():.2e}; "
+        f"{steps_s:.2f} s)"
+        + ("" if tf32_ratio is None else
+           f", round 1's steps with TF32 on (the faulty control) ratio "
+           f"{tf32_ratio:.2f}")
+        + "; "
+        f"round 1's aggregate within {agg1:.3e} (the CPU with 1 thread: "
+        f"{ctl_agg1:.3e}); accuracy gaps {[round(g, 4) for g in card_gaps]}"
+        f", the CPU with 1 thread {[round(g, 4) for g in ctl_gaps]} "
+        f"({ctl_s:.2f} s), held to {FL_ACC_TOL} in the first {held} "
+        f"rounds; card {flt.accuracy}, CPU {cpu.accuracy}")
+    check(ratio <= FL_STEP_RATIO,
+          f"{model} {dist}: the card's median SGD step is {ratio:.2f}x as "
+          f"far from f64 as the CPU's (limit {FL_STEP_RATIO})")
+    check(tf32_ratio is None or tf32_ratio > FL_STEP_RATIO,
+          f"{model} {dist}: TF32 steps at {tf32_ratio}x pass the step "
+          f"gate {FL_STEP_RATIO}: the check cannot see them")
+    check(all(g <= FL_ACC_TOL + 1e-12 for g in card_gaps[:held]),
+          f"{model} {dist}: accuracies {flt.accuracy} on the card, "
+          f"{cpu.accuracy} on the CPU")
+    return row
+
+
+def run_fl_churn(device=None) -> dict:
+    """examples/fl_learning_e2e.py's churn run: leavers hold stale
+    params and catch up when they rejoin."""
+    cfg = _fl_config(**FL_CHURN)
+    res, _, host_s = fl_run("fltorrent", cfg, device,
+                            _fl_params0(cfg.model, cfg.dataset))
+    check((res.participation, res.rejoin_rounds) == FL_CHURN_REF,
+          f"churn: participation {res.participation}, rejoin rounds "
+          f"{res.rejoin_rounds} != {FL_CHURN_REF}")
+    check(res.stale_seen and res.caught_up and res.agreement,
+          f"churn: stale_seen {res.stale_seen}, caught_up "
+          f"{res.caught_up}, agreement {res.agreement}")
+    log(f"churn (n {cfg.n_clients}, rate {cfg.churn_rate}, rejoin after "
+        f"{cfg.rejoin_after}, {cfg.rounds} rounds): participation "
+        f"{res.participation}, rejoins at {res.rejoin_rounds}, stale "
+        f"params re-synced, agreement; final accuracy "
+        f"{res.accuracy[-1]:.4f}; host {host_s:.2f} s")
+    return {"participation": res.participation,
+            "rejoin_rounds": res.rejoin_rounds,
+            "accuracy": res.accuracy, "host_s": host_s}
+
+
+def run_fl_async(slots, device=None) -> dict:
+    """table2_learning.async_frontier(fast=True) at one point: synchronous
+    (``slots`` None) or round_slots ``slots`` (buffer 4, staleness 3,
+    the tail carried), on straggler links and the event engine, whose
+    fair-share solves run on ``device``."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core.capacities import MBPS, StragglerLinkModel
+    from repro_torch.fl import AsyncConfig, run_async_experiment
+    from repro_torch.net import RESIDENTIAL_NET
+    slow = StragglerLinkModel(up_lo=15.5 * MBPS, up_hi=25.3 * MBPS,
+                              down_lo=36.5 * MBPS, down_hi=121.0 * MBPS,
+                              straggler_frac=0.08, up_slowdown=32.0)
+    base = dict(time_engine="event", net=RESIDENTIAL_NET, link_model=slow,
+                evolve_overlay=True)
+    acfg = AsyncConfig(**base) if slots is None else AsyncConfig(
+        buffer_k=4, max_staleness=3, overlap=True, round_slots=slots,
+        **base)
+    cfg = _fl_config(local=dict(epochs=1, lr=0.001), **FL_ASYNC)
+    with obs.recording() as rec, FairshareTimer() as ft:
+        t0 = time.perf_counter()
+        res = run_async_experiment(cfg, acfg, device=device)
+        host_s = time.perf_counter() - t0
+    want = "cpu" if device == "cpu" else "cuda"
+    check(res.session.device.type == want,
+          f"async: the fair shares were solved on {res.session.device}")
+    got = (res.session.cfg.chunks_per_update, round(res.wall_s[-1], 1),
+           res.staleness_hist, res.dropped)
+    label = "sync" if slots is None else f"round_slots {slots}"
+    check(got == FL_ASYNC_REF[slots],
+          f"async {label}: (K, wall_s, staleness_hist, dropped) {got} != "
+          f"{FL_ASYNC_REF[slots]}")
+    check(all(math.isfinite(a) for a in res.accuracy) and res.agreement,
+          f"async {label}: accuracies {res.accuracy}")
+    solves = int(rec.metrics.get("fairshare.maxmin_calls",
+                                 {"value": 0})["value"])
+    acc = float(np.mean(res.accuracy[-3:]))
+    log(f"async frontier {label} (n {cfg.n_clients}, K {got[0]}, "
+        f"{cfg.rounds} rounds): wall {res.wall_s[-1]:.1f} s, accuracy "
+        f"{acc:.4f} (last 3), staleness {res.staleness_hist}, dropped "
+        f"{res.dropped}, merged {res.merged}; host {host_s:.2f} s, of it "
+        f"fair-share {ft.seconds:.2f} s ({solves} solves, "
+        f"{1e6 * ft.seconds / max(solves, 1):.1f} us a solve)")
+    return {"wall_s": res.wall_s[-1], "acc": acc,
+            "staleness_hist": {str(k): v for k, v in
+                               res.staleness_hist.items()},
+            "dropped": res.dropped, "host_s": host_s,
+            "fairshare_s": ft.seconds, "solves": solves}
+
+
+def run_fl_paths(device=None) -> dict:
+    """The FL phase: Table II's fast rows (``FL_DISTS``; mlp with all three
+    methods, the cnn with CFL and FLTorrent), each FLTorrent trajectory
+    held to CFL's and the first dist's FLTorrent held to the same run on
+    the CPU; the churn run; the async frontier (``FL_ASYNC_SLOTS``).
+    ``device`` None is the card; ``"cpu"`` rehearses on the CPU.  TF32 is
+    left at torch's default (cuDNN on) during the phase: the runners must
+    turn it off themselves.  Returns the rows and times."""
+    import torch
+    t_phase = time.perf_counter()
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = {"table2": {f"{model}/{dist}": run_table2(model, dist, device)
+                          for model in FL_ROUNDS for dist in FL_DISTS}}
+        check(torch.backends.cudnn.allow_tf32,
+              "the runners did not restore the caller's TF32 flag")
+        out["churn"] = run_fl_churn(device)
+        out["async"] = {"sync" if s is None else f"round_slots{s}":
+                        run_fl_async(s, device) for s in FL_ASYNC_SLOTS}
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"FL phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -2420,6 +2882,7 @@ def main() -> int:
         _, swarm_rows = run_swarm_path()
         rows += swarm_rows
         event = run_event_paths()
+        fl = run_fl_paths()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}",
               file=sys.stderr, flush=True)
@@ -2427,6 +2890,7 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"event_paths": event, "card": card}))
+    log(json.dumps({"fl_paths": fl, "card": card}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -927,7 +927,7 @@ class SwarmSession:
         (generation < round, staleness > 0).  They keep their
         round-local chunk ids, so descriptor-keyed grading
         (``desc_owner_lookup``) over a mixed trace should use
-        :func:`repro.fl.asyncfl.adversary_view`, which band-shifts late
+        :func:`repro_torch.fl.asyncfl.adversary_view`, which band-shifts late
         descriptors into a disjoint range per generation."""
         parts = [rec.global_log() for rec in self.history]
         if include_late:
