@@ -10,9 +10,10 @@ and imports nothing of the JAX package:
    and CUDA versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``build/torch_kernels/`` and prints how long that took; beside that
-   build it compiles ``csrc/attention.cu`` and ``csrc/mlstm.cu`` each
-   alone with ``-Xptxas -v`` and prints their registers, shared memory
-   and spills, then the number of ``HGMMA`` instructions in each
+   build it compiles ``csrc/attention.cu``, ``csrc/mlstm.cu``,
+   ``csrc/rglru.cu`` and ``csrc/slots.cu`` each alone with ``-Xptxas
+   -v`` and prints their registers, shared memory and spills, then the
+   number of ``HGMMA`` instructions in each
    kernel's SASS (``cuobjdump``), which must be nonzero for attention's
    wgmma prefill kernel and mlstm's tensor-core kernels;
 3. holds every kernel against its plain PyTorch version on the card at
@@ -33,7 +34,9 @@ and imports nothing of the JAX package:
    512 and 80, gates scaled x10, T = 1, the layer's (B, T, H, dh) views,
    and cases of each route (the tensor-core route at dh 512, 256, 96, 64
    and 32, chunk 64 and 128, one chunk and 2048 steps), f32 (5e-4 on h,
-   C, n and m) and bf16 (3e-2), all finite;
+   C, n and m) and bf16 (3e-2), all finite; the slot engine's
+   slot_planes, overlap_rank and extract_ranked on ``SLOT_CASES`` in
+   every plane layout, exactly;
 4. the main paths, each with the launch counters set to 0 just before
    it and read just after:
    a. training: the train driver for 4 uncompressed steps of qwen3-1.7b
@@ -128,7 +131,29 @@ and imports nothing of the JAX package:
       peak memory, and times ``fedavg_reduce`` over all 16 rows
       (566,231,040 columns) beside its bound, the plain version by
       slices and ``wn @ updates``;
-9. the event engine (``repro_torch.net``, ``run_event_paths``; no
+9. the GPU slot engine (``repro_torch.core.jit_engine``,
+   ``scheduler_impl="jit"``, ``run_slot_engine_paths``), with the
+   launch counters and the engine's counts set to 0 before each round:
+   a. benchmarks/bench_scheduler.py's sweep point n 500 (K 206, GFF,
+      k_term 1030, cand_cap 8192, warm-up only) on the card: legal,
+      Eq. 1, not failed open, ``slot_planes``, ``overlap_rank`` and
+      ``extract_ranked`` each launched; t_warm and warm-up utilisation
+      within the equivalence tests' bands of the batched engine on the
+      host; the same round with ``device="cpu"`` byte-identical; slot
+      20's ``_slot_rounds`` on the card equal to the CPU's, its kernel
+      inputs held exactly against the plain versions and timed, and
+      the slot traced by ``torch.profiler`` (launches, copies, busy);
+      the warm-up seconds, the ``PHASE_S`` split, rounds and host reads
+      a slot, and the batched engine's seconds logged;
+   b. the headline round (n 100, K 64, s_max 100,000, exact BitTorrent
+      through the engine): byte-identical on the card and the CPU,
+      legal, t_round within the batched engine's band;
+   c. the sweep's top, n 5000, on the card: legal, Eq. 1, not failed
+      open, its timings, and the kernels held and timed at its shapes;
+   d. the jit session twin (n 20, K 16, churn 0.1, two rounds) on the
+      slot and event engines: the card's traces equal the CPU's byte
+      for byte;
+10. the event engine (``repro_torch.net``, ``run_event_paths``; no
    kernel build), whose max-min fair-share solves run in torch float64
    on the card:
    a. the card's ``maxmin_rates`` and ``transport`` against their numpy
@@ -156,7 +181,7 @@ and imports nothing of the JAX package:
       each round's metrics; benchmarks/bench_session.py's churn row;
    each round's host seconds, the seconds inside the fair-share solves
    (a synchronised timer) and the solves and microseconds a solve;
-10. the FL stack (``repro_torch.fl``, ``run_fl_paths``; no kernel
+11. the FL stack (``repro_torch.fl``, ``run_fl_paths``; no kernel
    build: the FL path's FedAvg and gossip are einsums, as in the JAX
    package), on the card by default, TF32 left at torch's default (the
    runners turn it off themselves; each aggregate is checked to be made
@@ -186,7 +211,8 @@ and imports nothing of the JAX package:
       and wall_s, the staleness histogram and drops equal the JAX
       package's (242.6 s; 197.7 s, {1: 94}; 213.5 s, {1: 52}; 0
       dropped); host and fair-share seconds;
-11. prints one ``{"event_paths": {...}}`` line with those times, one
+12. prints one ``{"slot_engine": {...}}`` line with the slot engine's
+   times, one ``{"event_paths": {...}}`` line with those times, one
    ``{"fl_paths": {...}}`` line with the FL phase's rows and times, one
    ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
@@ -372,7 +398,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-PTXAS_SOURCES = ("attention.cu", "mlstm.cu", "rglru.cu")
+PTXAS_SOURCES = ("attention.cu", "mlstm.cu", "rglru.cu", "slots.cu")
 
 
 def build() -> float:
@@ -469,6 +495,29 @@ def time_ms(fn, runs: int = 10) -> float:
     torch.cuda.synchronize()
     n = max(1, min(100, int(2.0 / max(once(1), 1e-3))))
     return statistics.median(once(n) for _ in range(runs))
+
+
+def time_fresh_ms(fn, src, runs: int = 10, pool: int = 20) -> float:
+    """``time_ms`` for a call that updates its argument in place: median
+    over ``runs`` CUDA-event timings of ``fn(b)`` over ``pool`` copies
+    ``b`` of ``src``, all refreshed before each timing starts."""
+    import torch
+
+    bufs = [src.clone() for _ in range(pool)]
+    fn(bufs[0])
+    times = []
+    for _ in range(runs):
+        for b in bufs:
+            b.copy_(src)
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for b in bufs:
+            fn(b)
+        e.record()
+        e.synchronize()
+        times.append(a.elapsed_time(e) / pool)
+    return statistics.median(times)
 
 
 def bound_ms(nbytes: float, ops: float = 0.0,
@@ -691,6 +740,81 @@ def _mlstm_inputs(b, h, t, dh, gate_scale, dtype, layout, gen):
     return q.to(dtype), k.to(dtype), v.to(dtype), i, f
 
 
+# (n, m_pad, m_cnt, w_full): one word, ragged candidates, S = 1 and 16,
+# the sweep's 8192 candidates
+SLOT_CASES = [(7, 32, 32, 20), (50, 256, 200, 400), (33, 128, 97, 64),
+              (300, 8192, 8000, 3219)]
+
+
+def check_small_slots(device="cuda", cases=SLOT_CASES) -> None:
+    """The three slot kernels against their plain versions on seeded
+    inputs (``cases`` of (n, m_pad, m_cnt, w_full), every plane layout:
+    with and without the owner tier, gated and ungated), exact: random
+    inventories with bit 31 set, candidate ids anywhere in the universe,
+    random senders, grants of 0 to 64 columns with the tier split at its
+    count, rows with no grant.  tests/test_torch_jit_engine.py runs it
+    case by case."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import slots
+    dev = torch.device(device)
+    held = 0
+    for n, m_pad, m_cnt, w_full in cases:
+        g = np.random.default_rng(n * m_pad)
+        have = g.integers(-2 ** 31, 2 ** 31, size=(n, w_full),
+                          dtype=np.int64).astype(np.int32)
+        have[::3] &= g.integers(-2 ** 31, 2 ** 31, size=have[::3].shape,
+                                dtype=np.int64).astype(np.int32)
+        cand = g.choice(w_full * 32, size=m_pad, replace=False)
+        owner = g.integers(0, n, size=m_pad)
+        host = [torch.from_numpy(have), torch.from_numpy(cand).int(),
+                torch.from_numpy(owner).int(),
+                torch.from_numpy(g.random(m_pad) < 0.5),
+                torch.from_numpy(g.random(n) < 0.8)]
+        for nonowner in (True, False):
+            for ungated in (True, False):
+                kw = dict(nonowner=nonowner, ungated=ungated)
+                want = slots.slot_planes(*host, m_cnt, **kw, impl="torch")
+                got = slots.slot_planes(*(t.to(dev) for t in host), m_cnt,
+                                        **kw)
+                for w, c in zip(want, got):
+                    check((w is None) == (c is None)
+                          and (w is None or torch.equal(c.cpu(), w)),
+                          f"slot_planes {n, m_pad, m_cnt} {kw}: differs")
+                plane_a, plane_b, need = want[:3]
+                u_c = torch.from_numpy(g.integers(0, n, size=n))
+                on = (lambda t: None if t is None else t.to(dev))
+                sbc, cnt_b = slots.overlap_rank(plane_a, plane_b, need, u_c,
+                                                impl="torch")
+                csbc, ccnt = slots.overlap_rank(on(plane_a), on(plane_b),
+                                                on(need), on(u_c))
+                check(torch.equal(csbc.cpu(), sbc)
+                      and torch.equal(ccnt.cpu(), cnt_b),
+                      f"overlap_rank {n, m_pad} {kw}: differs")
+                cnt_a = sbc[:, -1]
+                take = torch.minimum(cnt_a + cnt_b, torch.from_numpy(
+                    g.integers(0, 65, size=n)).int()).int()
+                take[::5] = 0
+                t_a = (torch.minimum(take, cnt_a) if plane_b is not None
+                       else take)
+                cneed = need.clone().to(dev)
+                want_cols = slots.extract_ranked(
+                    plane_a, plane_b, need, u_c, take, t_a, sbc, 64,
+                    impl="torch")
+                cols = slots.extract_ranked(
+                    on(plane_a), on(plane_b), cneed, on(u_c), on(take),
+                    on(t_a), on(sbc), 64)
+                check(torch.equal(cols.cpu(), want_cols)
+                      and torch.equal(cneed.cpu(), need),
+                      f"extract_ranked {n, m_pad} {kw}: differs")
+                held += 1
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"slot kernels: slot_planes, overlap_rank and extract_ranked equal "
+        f"to their plain versions on {held} cases")
+
+
 def check_small_mlstm() -> None:
     """mlstm_chunkwise vs its plain version at small and odd shapes: h
     and the final state (C, n, m), all finite."""
@@ -874,6 +998,7 @@ def run_train_path(arch: str, n_params: int, steps: int,
     dtypes = {str(t.dtype) for t in leaves(params)}
     opt = adamw_init(params)
     step = ElasticFLStep(cfg, lr_schedule=constant_lr(1e-4),
+                         mesh_factory=lambda p: None,
                          torrent_blocks=TORRENT_BLOCKS, compress=True)
     rng = np.random.default_rng(1)
     ones = torch.ones(PODS, device=dev)
@@ -1582,7 +1707,9 @@ def check_small_step_vs_cpu() -> None:
 GOLDEN = ROOT / "tests" / "golden_schedules.json"
 GOLDEN_MODES = ("random_fifo", "random_fastest_first",
                 "greedy_fastest_first", "distributed", "flooding")
-GOLDEN_IMPLS = ("batched", "loop")      # the port has no jit engine yet
+# the jit digests follow jax.random's stream, which the port does not
+# draw (its jit engine's noise bases come from a torch.Generator)
+GOLDEN_IMPLS = ("batched", "loop")
 GOLDEN_SEEDS = (1, 9)
 # the columns of a transfer log that tests/capture_golden.py digests
 LOG_KEYS = ("slot", "sender", "receiver", "chunk", "owner", "b_size",
@@ -1959,6 +2086,446 @@ def fedavg_row(u, w, a, counts, label, cols_width) -> dict:
         f"peak, bound {bound[0]:.3f} ms); plain {plain:.3f} ms; wn @ "
         f"updates {lib:.3f} ms; max err {err:.3e}")
     return row
+
+
+# ----------------------------------------------------------------------
+# the GPU slot engine (repro_torch.core.jit_engine): scheduler_impl="jit"
+# ----------------------------------------------------------------------
+
+# benchmarks/bench_scheduler.py's configurations: the scaling sweep's
+# points (_sweep_cfg: K 206, GFF, k_term 1030 chunks a client at every
+# n, cand_cap 8192, warm-up only) and the headline round (n 100, K 64,
+# s_max 100,000, exact BitTorrent); tests/test_scheduler_equivalence.py's
+# jit session twin (n 20, K 16, churn 0.1, two rounds).
+SLOT_K = 206
+SLOT_CAP = 8192
+SLOT_NS = (500, 5000)           # the sweep's bottom and top
+SLOT_CAPTURE_AT = 20            # the slot whose kernel inputs are kept
+SLOT_KERNELS = ("slot_planes", "overlap_rank", "extract_ranked")
+SLOT_LINES = {"slot_planes": "src/repro/core/jit_engine.py:358",
+              "overlap_rank": "src/repro/core/jit_engine.py:462",
+              "extract_ranked": "src/repro/core/jit_engine.py:273"}
+SLOT_PROFILED_SLOTS = 1         # slot replays traced by torch.profiler
+
+
+def sweep_cfg(n: int, impl: str):
+    """bench_scheduler.py::_sweep_cfg."""
+    from repro_torch.core import SwarmConfig
+    return SwarmConfig(n=n, chunks_per_update=SLOT_K, s_max=100_000, seed=0,
+                       scheduler="greedy_fastest_first", scheduler_impl=impl,
+                       warmup_threshold_pct=5.0 / n, cand_cap=SLOT_CAP)
+
+
+def _clone_args(args):
+    import torch
+    out = []
+    for a in args:
+        if torch.is_tensor(a):
+            a = a.clone()
+        elif isinstance(a, tuple):
+            a = tuple(b.clone() for b in a)
+        out.append(a)
+    return out
+
+
+@contextlib.contextmanager
+def capture_slot(at: int):
+    """Keep (clones of) the arguments of ``_slot_rounds``'s call number
+    ``at`` (0-based) in the yielded dict's ``"args"``."""
+    from repro_torch.core import jit_engine as je
+    orig = je._slot_rounds
+    held = {"calls": 0, "args": None}
+
+    def wrapped(*args, **kw):
+        if held["calls"] == at:
+            held["args"] = _clone_args(args)
+        held["calls"] += 1
+        return orig(*args, **kw)
+
+    je._slot_rounds = wrapped
+    try:
+        yield held
+    finally:
+        je._slot_rounds = orig
+
+
+def capture_kernel_inputs(slot_args) -> dict:
+    """Replay a captured slot on the card with each slot kernel's
+    wrapper keeping (clones of) the inputs of its first call: stage 1
+    and the slot's first grant round."""
+    from repro_torch.core import jit_engine as je
+    from repro_torch.kernels import slots
+    got = {}
+    orig = {name: getattr(slots, name) for name in SLOT_KERNELS}
+
+    def recorder(name):
+        def f(*a, **kw):
+            if name not in got:
+                got[name] = (_clone_args(a), dict(kw))
+            return orig[name](*a, **kw)
+        return f
+
+    for name in SLOT_KERNELS:
+        setattr(slots, name, recorder(name))
+    try:
+        je._slot_rounds(*slot_args)
+    finally:
+        for name in SLOT_KERNELS:
+            setattr(slots, name, orig[name])
+    check(set(got) == set(SLOT_KERNELS), f"slot kernels not called: {got}")
+    return got
+
+
+def _planes_bytes(a, outs) -> float:
+    import torch
+    have, cand, owner, allowed, recv_ok, m_cnt = a
+    words = torch.unique(cand[:m_cnt].long() >> 5).numel()
+    reads = have.shape[0] * words * 4.0 + cand.numel() * 9.0 + recv_ok.numel()
+    writes = sum(t.numel() * t.element_size() for t in outs
+                 if t is not None)
+    return reads + writes
+
+
+def _rank_bytes(a, sbc) -> float:
+    import torch
+    plane_a, plane_b, need, u_c = a
+    n, w = need.shape
+    rows = torch.unique(u_c).numel()
+    planes = 1 if plane_b is None else 2
+    return (need.numel() * 4.0 + planes * rows * w * 4.0 + u_c.numel() * 8.0
+            + sbc.numel() * 4.0 + n * 4.0)
+
+
+def _extract_bytes(a, cols) -> float:
+    import torch
+    plane_a, plane_b, need, u_c, take, t_a, sbc, t_cap = a
+    n, w = need.shape
+    granted = take > 0
+    g = int(granted.sum())
+    senders = torch.unique(u_c[granted]).numel()
+    planes = 1 if plane_b is None else 2
+    return (g * w * 4.0 + planes * senders * w * 4.0 + n * 16.0
+            + g * sbc.shape[1] * 4.0 + cols.numel() * 4.0
+            + float(take.sum()) * 4.0)
+
+
+def slot_kernel_rows(inputs: dict, counts: dict, slots_run: int,
+                     label: str) -> list[dict]:
+    """Each slot kernel on its captured inputs: on the card against its
+    plain version on the card (exact integer equality), timed with CUDA
+    events beside the plain version, and its bound (bytes: inputs read
+    once, outputs written once; the inventory words that hold a
+    candidate column, the plane rows of this round's senders, the need
+    rows of this round's grants).  extract_ranked clears ``need`` in
+    place, so each timed call runs on its own fresh copy, made before
+    the timing starts (``time_fresh_ms``)."""
+    import torch
+
+    from repro_torch.kernels import slots
+    rows = []
+    for name in SLOT_KERNELS:
+        a, kw = inputs[name]
+        kw = {k: v for k, v in kw.items() if k != "impl"}
+        fn = getattr(slots, name)
+        if name == "extract_ranked":
+            need0 = a[2]
+            buf = torch.empty_like(need0)
+
+            def run(impl, fn=fn, a=a, kw=kw, need0=need0, buf=buf):
+                buf.copy_(need0)
+                return fn(*a[:2], buf, *a[3:], **kw, impl=impl)
+            got = (run("cuda"), buf.clone())
+            want = (run("torch"), buf.clone())
+        else:
+            def run(impl, fn=fn, a=a, kw=kw):
+                out = fn(*a, **kw, impl=impl)
+                return out if isinstance(out, tuple) else (out,)
+            got, want = run("cuda"), run("torch")
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check((g is None) == (w is None),
+                  f"{name} {label}: a plane is missing on one side")
+            if g is not None:
+                check(torch.equal(g, w),
+                      f"{name} {label}: the kernel differs from its plain "
+                      f"version ({int((g != w).sum())} of {g.numel()} "
+                      "elements)")
+        if name == "extract_ranked":
+            def on(b, impl, fn=fn, a=a, kw=kw):
+                fn(*a[:2], b, *a[3:], **kw, impl=impl)
+            ms = time_fresh_ms(lambda b: on(b, "cuda"), need0)
+            plain = time_fresh_ms(lambda b: on(b, "torch"), need0, runs=3)
+            nbytes = _extract_bytes(a, got[0])
+        else:
+            ms = time_ms(lambda: run("cuda"))
+            plain = time_ms(lambda: run("torch"), runs=3)
+            nbytes = (_planes_bytes(a, got) if name == "slot_planes"
+                      else _rank_bytes(a, got[0]))
+        bound = bound_ms(nbytes)
+        row = _row(name, "csrc/slots.cu", SLOT_LINES[name], counts, 0.0, ms,
+                   plain, bound, None)
+        row["launches_per_slot"] = counts.get(name, 0) / max(slots_run, 1)
+        row["library"] = "none (no PyTorch popcount op)"
+        width = (a[1].shape[0] // 32 if name == "slot_planes"
+                 else a[2].shape[1])
+        row["shape"] = f"{label}: planes ({a[0].shape[0]}, {width}) words"
+        rows.append(row)
+        log(f"{name} {label}: {ms:.4f} ms against a bound of "
+            f"{bound[0]:.4f} ms ({bound[1]}, {100 * bound[0] / ms:.1f}%), "
+            f"plain {plain:.4f} ms, library none (no PyTorch popcount op); "
+            f"{counts.get(name, 0)} launches, "
+            f"{row['launches_per_slot']:.2f} a slot; equal to the plain "
+            "version")
+    return rows
+
+
+def profile_slot(slot_args) -> dict:
+    """One captured slot replayed on the card under ``torch.profiler``:
+    kernel launches and device-to-host copies (runtime calls), device
+    time and the busy share of the traced wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import jit_engine as je
+    je._slot_rounds(*slot_args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SLOT_PROFILED_SLOTS):
+            _, _, rounds = je._slot_rounds(*slot_args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, launches, copies = 0.0, 0, 0
+    for e in prof.key_averages():
+        dev_us += (getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0) or 0)
+        if e.key == "cudaLaunchKernel":
+            launches += e.count
+        elif e.key in ("cudaMemcpyAsync", "cudaMemcpy"):
+            copies += e.count
+    k = SLOT_PROFILED_SLOTS
+    return {"rounds": rounds, "launches_per_slot": launches / k,
+            "copies_per_slot": copies / k, "device_ms_per_slot":
+            dev_us / k / 1e3, "wall_ms_per_slot": 1e3 * wall / k,
+            "busy": dev_us / max(1e6 * wall, 1e-9)}
+
+
+def jit_round(cfg, device, warmup_only: bool, capture: int | None = None):
+    """One jit round on ``device`` under the measured clock, the launch
+    counters and the engine's counts set to 0 before it; returns the
+    result, the host seconds, PHASE_S, COUNTS, the launches and the
+    captured slot's arguments (or None)."""
+    from repro_torch import kernels
+    from repro_torch.core import jit_engine as je
+    from repro_torch.core.simulator import RoundSimulator, measured_clock
+    cap = capture_slot(capture if capture is not None else -1)
+    with cap as held, measured_clock() as clk:
+        je.reset_phase_timers()
+        je.reset_counts()
+        kernels.reset_launches()
+        t0 = clk()
+        res = RoundSimulator(cfg, device=device).run(warmup_only=warmup_only)
+        host_s = clk() - t0
+        phases = je.reset_phase_timers()
+        counts = je.reset_counts()
+        launches = dict(kernels.LAUNCHES)
+    return res, host_s, phases, counts, launches, held["args"]
+
+
+def _digest_equal(a, b, what: str) -> None:
+    check(log_digest(a.log) == log_digest(b.log),
+          f"{what}: the card's transfer log differs from the CPU's")
+
+
+def _bands(rj, rb, what: str, t_round: bool = False) -> None:
+    """tests/test_scheduler_equivalence.py's three-way bands against the
+    batched engine."""
+    check(abs(rj.t_warm - rb.t_warm) <= max(3, 0.6 * rb.t_warm),
+          f"{what}: t_warm {rj.t_warm} against batched {rb.t_warm}")
+    check(abs(rj.warmup_utilization - rb.warmup_utilization) <= 0.2,
+          f"{what}: warm-up utilisation {rj.warmup_utilization:.4f} "
+          f"against batched {rb.warmup_utilization:.4f}")
+    if t_round:
+        check(abs(rj.t_round - rb.t_round) <= max(5, 0.35 * rb.t_round),
+              f"{what}: t_round {rj.t_round} against batched {rb.t_round}")
+
+
+def _slot_line(label, res, host_s, phases, counts, launches) -> dict:
+    m = res.metrics
+    slots_run = max(counts["slots"], 1)
+    t = {"host_s": host_s, **res.timings, **phases, **counts,
+         "t_warm": m.t_warm, "t_round": m.t_round,
+         "warmup_utilization": m.warmup_utilization,
+         "rounds_per_slot": counts["rounds"] / slots_run,
+         "host_reads_per_slot": counts["host_reads"] / slots_run,
+         "launches": {k: launches.get(k, 0) for k in SLOT_KERNELS}}
+    warm = res.timings["warmup_s"]
+    log(f"jit {label}: host {host_s:.2f} s (warm-up {warm:.2f} s: "
+        f"bitplane {phases['bitplane_s']:.2f}, matching "
+        f"{phases['matching_s']:.2f}, extraction {phases['extraction_s']:.2f}"
+        f"), t_warm {m.t_warm}, t_round {m.t_round}, warm-up utilisation "
+        f"{m.warmup_utilization:.4f}, {counts['slots']} slots, "
+        f"{t['rounds_per_slot']:.2f} rounds and {t['host_reads_per_slot']:.2f}"
+        f" host reads a slot, launches {t['launches']}")
+    return t
+
+
+def run_slot_engine_paths(device=None) -> tuple[dict, list[dict]]:
+    """The GPU slot engine's phase (``scheduler_impl="jit"``), on the card
+    (``device`` None) or, as a rehearsal, on the CPU (``"cpu"``: no
+    card-against-CPU twins, no kernel rows):
+
+    a. the n 500 sweep point, warm-up only, on the card, with the launch
+       counters set to 0 just before it: legal, Eq. 1, not failed open,
+       every slot kernel launched; t_warm and utilisation within the
+       batched engine's bands (the batched round on the host beside
+       it); the same round on the CPU byte-identical; the captured
+       slot's ``_slot_rounds`` on the card equal to the CPU's, its
+       kernel inputs held exactly against the plain versions and
+       timed, and the slot traced (launches, host copies, busy share);
+    b. bench_scheduler.py's headline round (n 100, K 64, exact
+       BitTorrent through the engine, full round) on the card and on
+       the CPU: byte-identical, t_round within the batched band;
+    c. the sweep's top (n 5000), warm-up only, on the card: legal, Eq. 1,
+       not failed open, the kernels held and timed at its shapes;
+    d. the jit session twin (n 20, K 16, churn 0.1, two rounds) on the
+       slot and event engines: the card's traces equal the CPU's byte
+       for byte.
+    Returns the phase's times and the kernel rows."""
+    import numpy as np
+
+    from repro_torch.core import SwarmConfig, SwarmSession, privacy
+    from repro_torch.core import jit_engine as je
+    from repro_torch.core import simulate_round
+    from repro_torch.net import NetConfig
+    card = device is None
+    dev = "cuda" if card else device
+    t_phase = time.perf_counter()
+    out, rows = {}, []
+
+    # a. n 500
+    n = SLOT_NS[0]
+    cfg = sweep_cfg(n, "jit")
+    res, host_s, ph, cnt, launches, slot_args = jit_round(
+        cfg, dev, True, SLOT_CAPTURE_AT)
+    check(not res.metrics.failed_open, f"jit n={n}: the warm-up failed open")
+    check(privacy.check_eq1(res.log, cfg.owner_throttle, cfg.k_gate),
+          f"jit n={n}: a warm-up transfer breaks Eq. 1")
+    replay_legality(cfg, res, check_tau=True)
+    if card:
+        for k in SLOT_KERNELS:
+            check(launches.get(k, 0) > 0, f"jit n={n}: {k} never launched")
+    out[f"n{n}"] = _slot_line(f"n={n} K={SLOT_K} on {dev}", res, host_s, ph,
+                              cnt, launches)
+    t0 = time.perf_counter()
+    rb = simulate_round(sweep_cfg(n, "batched"), warmup_only=True)
+    out[f"n{n}"]["batched_s"] = batched_s = time.perf_counter() - t0
+    _bands(res.metrics, rb.metrics, f"jit n={n}")
+    log(f"batched n={n}: warm-up {batched_s:.2f} s of host time, t_warm "
+        f"{rb.metrics.t_warm}, utilisation "
+        f"{rb.metrics.warmup_utilization:.4f}; jit within its bands")
+    if card:
+        cres, cpu_s, *_ = jit_round(cfg, "cpu", True)
+        _digest_equal(res, cres, f"jit n={n}")
+        out[f"n{n}"]["cpu_s"] = cpu_s
+        log(f"jit n={n} on the CPU: {cpu_s:.2f} s, the same log byte for "
+            "byte")
+        check(slot_args is not None, f"jit n={n}: no slot captured")
+        cpu_args = [a.cpu() if hasattr(a, "cpu") else
+                    (tuple(b.cpu() for b in a) if isinstance(a, tuple) else a)
+                    for a in slot_args]
+        g, c = je._slot_rounds(*slot_args), je._slot_rounds(*cpu_args)
+        check(g[2] == c[2] and bool((g[0].cpu() == c[0]).all())
+              and bool((g[1].cpu() == c[1]).all()),
+              f"jit n={n}: _slot_rounds on the card differs from the CPU")
+        log(f"jit n={n}: slot {SLOT_CAPTURE_AT}'s _slot_rounds equal on the "
+            f"card and the CPU ({g[2]} rounds)")
+        rows += slot_kernel_rows(capture_kernel_inputs(slot_args), launches,
+                                 cnt["slots"], f"n {n}")
+        out[f"n{n}"]["profile"] = prof = profile_slot(slot_args)
+        log(f"jit n={n} slot {SLOT_CAPTURE_AT} traced: {prof['rounds']} "
+            f"rounds, {prof['launches_per_slot']:.0f} kernel launches, "
+            f"{prof['copies_per_slot']:.0f} copies, device "
+            f"{prof['device_ms_per_slot']:.3f} ms in "
+            f"{prof['wall_ms_per_slot']:.3f} ms (busy "
+            f"{100 * prof['busy']:.1f}%)")
+    del slot_args
+    if card:
+        free_cuda()
+
+    # b. the headline round: exact BitTorrent through the engine
+    hcfg = SwarmConfig(n=100, chunks_per_update=64, s_max=100_000, seed=0,
+                       scheduler_impl="jit")
+    res, host_s, ph, cnt, launches, _ = jit_round(hcfg, dev, False)
+    check(not res.fluid_bt, "headline: BitTorrent ran fluid, not exact")
+    check(bool(res.reconstructable.all()) and not res.metrics.failed_open,
+          "headline: not every update reconstructable")
+    replay_legality(hcfg, res, check_tau=True)
+    out["headline"] = _slot_line(f"headline n=100 K=64 on {dev}", res,
+                                 host_s, ph, cnt, launches)
+    t0 = time.perf_counter()
+    rb = simulate_round(hcfg.replace(scheduler_impl="batched"))
+    out["headline"]["batched_s"] = time.perf_counter() - t0
+    _bands(res.metrics, rb.metrics, "headline", t_round=True)
+    log(f"batched headline: {out['headline']['batched_s']:.2f} s, t_round "
+        f"{rb.metrics.t_round}; jit within its bands")
+    if card:
+        cres, cpu_s, *_ = jit_round(hcfg, "cpu", False)
+        _digest_equal(res, cres, "headline")
+        out["headline"]["cpu_s"] = cpu_s
+        log(f"jit headline on the CPU: {cpu_s:.2f} s, the same log byte for "
+            "byte")
+
+    # c. the sweep's top
+    if card:
+        n = SLOT_NS[1]
+        cfg = sweep_cfg(n, "jit")
+        res, host_s, ph, cnt, launches, slot_args = jit_round(
+            cfg, dev, True, SLOT_CAPTURE_AT)
+        check(not res.metrics.failed_open,
+              f"jit n={n}: the warm-up failed open")
+        check(privacy.check_eq1(res.log, cfg.owner_throttle, cfg.k_gate),
+              f"jit n={n}: a warm-up transfer breaks Eq. 1")
+        t0 = time.perf_counter()
+        replay_legality(cfg, res, check_tau=True)
+        legal_s = time.perf_counter() - t0
+        out[f"n{n}"] = _slot_line(f"n={n} K={SLOT_K} on {dev}", res, host_s,
+                                  ph, cnt, launches)
+        out[f"n{n}"]["legality_s"] = legal_s
+        del res
+        rows += slot_kernel_rows(capture_kernel_inputs(slot_args), launches,
+                                 cnt["slots"], f"n {n}")
+        del slot_args
+        free_cuda()
+
+    # d. the session twin
+    for te in ("slot", "event"):
+        traces = []
+        for d in ((dev, "cpu") if card else (dev,)):
+            scfg = SwarmConfig(n=20, chunks_per_update=16, min_degree=5,
+                               s_max=4000, seed=7, scheduler_impl="jit")
+            kw = ({"time_engine": "event",
+                   "net": NetConfig(tracker_rtt_s=0.05)} if te == "event"
+                  else {})
+            ses = SwarmSession(scfg, churn_rate=0.1, device=d, **kw)
+            ses.run(2)
+            traces.append(ses.trace())
+        for tr in traces[1:]:
+            for key in LOG_KEYS:
+                check(np.array_equal(tr[key], traces[0][key]),
+                      f"jit session ({te}): {key} differs card to CPU")
+            check(np.asarray(tr.t_start).tobytes()
+                  == np.asarray(traces[0].t_start).tobytes()
+                  and np.asarray(tr.t_end).tobytes()
+                  == np.asarray(traces[0].t_end).tobytes(),
+                  f"jit session ({te}): t_start/t_end differ card to CPU")
+        log(f"jit session twin ({te}): {len(traces[0]['slot'])} rows"
+            + (", the card's trace equal to the CPU's" if card else ""))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"slot engine phase: {out['phase_s']:.1f} s")
+    return out, rows
+
 
 
 # ----------------------------------------------------------------------
@@ -2866,6 +3433,7 @@ def main() -> int:
         check_small()
         check_small_serving()
         check_small_mlstm()
+        check_small_slots()
         train_counts = {arch: run_train_path(arch, d, steps, comp)
                         for arch, d, steps, comp in TRAIN_PATHS}
         serve_counts, served = run_serving_path()
@@ -2881,6 +3449,8 @@ def main() -> int:
         run_swarm_paper_scale()
         _, swarm_rows = run_swarm_path()
         rows += swarm_rows
+        slot, slot_rows = run_slot_engine_paths()
+        rows += slot_rows
         event = run_event_paths()
         fl = run_fl_paths()
     except SmokeFailure as e:
@@ -2889,6 +3459,7 @@ def main() -> int:
         return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
+    log(json.dumps({"slot_engine": slot, "card": card}))
     log(json.dumps({"event_paths": event, "card": card}))
     log(json.dumps({"fl_paths": fl, "card": card}))
     log(json.dumps({"kernels": rows}))

@@ -9,9 +9,10 @@ Public API (the JAX package's):
   continuous-time event transport of :mod:`repro_torch.net`
   (``simulate_round(cfg, time_engine="event")`` — wall-clock seconds,
   fair-share flows solved in float64 on the GPU, or on the CPU with
-  ``device="cpu"``; per-transfer ``t_start``/``t_end``).  The jitted
-  slot engine (``scheduler_impl="jit"``) is not ported yet and raises
-  ``NotImplementedError`` (ROADMAP.md queue 1).
+  ``device="cpu"``; per-transfer ``t_start``/``t_end``).  The third
+  slot engine, ``scheduler_impl="jit"`` (``jit_engine``), matches each
+  slot over packed bitplanes on the GPU (hand CUDA kernels), or on the
+  CPU with ``device="cpu"``.
 * ``SwarmSession`` / ``ChurnModel`` — the persistent multi-round swarm:
   cross-round churn (leave/join/rejoin at round boundaries), evolving
   overlay with incremental edge repair, capacity persistence (§III-E).
@@ -20,8 +21,8 @@ Public API (the JAX package's):
   ``SwarmConfig.scheduler`` accepts a name or an instance.
 * ``schedulers`` — the §III-C family (RandomFIFO / RandomFastestFirst /
   GreedyFastestFirst / distributed / flooding + vanilla-BT) as
-  registered policies over two interchangeable slot engines, ``loop``
-  and ``batched`` (+ max-flow stage upper bound).
+  registered policies over three interchangeable slot engines,
+  ``loop``, ``batched`` and ``jit`` (+ max-flow stage upper bound).
 * ``trace`` — typed columnar TransferTrace: the observation contract
   consumed by attacks/privacy/audit (round/phase slicing, observer
   masking, cross-round concatenation via ``SwarmSession.trace()``).

@@ -840,17 +840,9 @@ def schedule_flooding(state: SwarmState, sent_pairs: dict):
 CENTRALIZED = {"random_fifo", "random_fastest_first", "greedy_fastest_first"}
 
 
-# The jitted slot engine (the JAX package's ``core/jit_engine.py``) has
-# no port yet: ROADMAP.md queue 1 item 5.
-_NO_JIT = ("scheduler_impl='jit' is not ported to repro_torch yet "
-           "(ROADMAP.md queue 1 item 5); use 'batched' or 'loop'")
-
-
 def _impl(state: SwarmState) -> str:
     impl = getattr(state.cfg, "scheduler_impl", "batched")
-    if impl == "jit":
-        raise NotImplementedError(_NO_JIT)
-    if impl not in ("batched", "loop"):
+    if impl not in ("batched", "loop", "jit"):
         raise ValueError(f"unknown scheduler_impl {impl!r}")
     return impl
 
@@ -866,6 +858,9 @@ class CentralizedPolicy(SchedulerPolicy):
         impl = _impl(state)
         if impl == "loop":
             return _schedule_centralized_loop(state, self.mode)
+        if impl == "jit":
+            from .jit_engine import schedule_centralized_jit
+            return schedule_centralized_jit(state, self.mode)
         return _schedule_centralized_batched(state, self.mode)
 
 
@@ -912,6 +907,9 @@ class DistributedPolicy(SchedulerPolicy):
 
     def schedule(self, view: SlotView):
         state = view._engine_state()
+        # "jit" routes to the batched backend here: the distributed
+        # mode's hot path is already one-shot vectorized (no budgeted
+        # round loop to stage), so a separate kernel would buy nothing.
         if _impl(state) == "loop":
             return _schedule_distributed_loop(state)
         return _schedule_distributed_batched(state)
@@ -943,6 +941,9 @@ def schedule_centralized(state: SwarmState, mode: str):
     impl = _impl(state)
     if impl == "loop":
         return _schedule_centralized_loop(state, mode)
+    if impl == "jit":
+        from .jit_engine import schedule_centralized_jit
+        return schedule_centralized_jit(state, mode)
     return _schedule_centralized_batched(state, mode)
 
 

@@ -339,10 +339,11 @@ class SwarmSession:
         exactly when churn is enabled, so the zero-churn session stays
         bit-identical to the historical per-round re-roll.
     device : torch device, optional
-        Where ``time_engine="event"`` rounds solve their fair shares:
-        the GPU unless the caller names the CPU
+        Where ``time_engine="event"`` rounds solve their fair shares
+        and ``scheduler_impl="jit"`` rounds match their slots: the GPU
+        unless the caller names the CPU
         (:func:`repro_torch.resolve_device`; no GPU and no device
-        raises).  The slot engine ignores it.
+        raises).  Other sessions ignore it.
     """
 
     def __init__(self, cfg: SwarmConfig, *,
@@ -371,9 +372,11 @@ class SwarmSession:
             raise ValueError(f"unknown time_engine {time_engine!r}")
         self.time_engine = time_engine
         self.net = net
-        # Torch device of every round's fair-share solves (event only).
-        self.device = (resolve_device(device) if time_engine == "event"
-                       else None)
+        # Torch device of every round's fair-share solves (event) and
+        # jit slot matching.
+        self.device = (resolve_device(device)
+                       if time_engine == "event"
+                       or cfg.scheduler_impl == "jit" else None)
         self.round_seed = (round_seed if round_seed is not None
                            else lambda r: cfg.seed * 1000 + r)
         self.evolve = (churn.enabled if evolve_overlay is None

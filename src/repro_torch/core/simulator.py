@@ -70,9 +70,9 @@ def set_clock(fn) -> None:
 @contextlib.contextmanager
 def measured_clock(fn=None):
     """Scoped measurement clock: install ``fn`` (default
-    ``time.perf_counter``) as the phase-timing clock of this module
-    (the port has no jitted engine whose clock would join it), yield
-    it, and ALWAYS restore the previous clock on exit.
+    ``time.perf_counter``) as the phase-timing clock of BOTH this
+    module and :mod:`repro_torch.core.jit_engine`, yield it, and ALWAYS
+    restore the previous clocks on exit.
 
     This replaces the paired ``set_clock(...)`` / ``set_clock(None)``
     benchmark idiom, which leaked: an exception between the calls left
@@ -80,14 +80,18 @@ def measured_clock(fn=None):
     (timings are diagnostics, but a surviving host-clock hook is
     exactly what RNG007 exists to keep out of the sim layer).
     """
+    from . import jit_engine
+
     if fn is None:
         fn = time.perf_counter
-    prev = _clock
+    prev, prev_jit = _clock, jit_engine._clock
     set_clock(fn)
+    jit_engine.set_clock(fn)
     try:
         yield fn
     finally:
         set_clock(prev)
+        jit_engine.set_clock(prev_jit)
 
 
 @dataclass
@@ -135,7 +139,7 @@ class RoundSimulator:
         time_engine: str = "slot",      # "slot" | "event"
         net=None,                       # net.NetConfig (event only)
         background=None,                # (snd, rcv, meta) carried tail
-        device=None,                    # fair-share solves (event only)
+        device=None,                    # fair-share solves, jit engine
     ):
         """``overlay``/``up``/``down``/``rng`` let a :class:`SwarmSession`
         inject a persistent population (evolving topology, sticky
@@ -148,10 +152,11 @@ class RoundSimulator:
         continuous-time transport of :mod:`repro_torch.net` (same
         schedules, wall-clock seconds, fair-share flow timing); ``net``
         is its :class:`~repro_torch.net.NetConfig` and ``device`` the
-        torch device of its fair-share solves, resolved with
-        :func:`repro_torch.resolve_device` only for the event engine
-        (the GPU unless the caller names the CPU; no GPU and no device
-        raises).  ``up_bps``/``down_bps`` inject
+        torch device of its fair-share solves and of the jit slot
+        engine (``cfg.scheduler_impl == "jit"``), resolved with
+        :func:`repro_torch.resolve_device` only for those two (the GPU
+        unless the caller names the CPU; no GPU and no device raises).
+        ``up_bps``/``down_bps`` inject
         raw link rates alongside the integer budgets (sessions persist
         them); when omitted they are sampled from ``link_model`` via the
         same rng draws that produce the slot budgets, so both engines
@@ -160,8 +165,9 @@ class RoundSimulator:
         if time_engine not in ("slot", "event"):
             raise ValueError(f"unknown time_engine {time_engine!r}")
         self.time_engine = time_engine
-        self.device = (resolve_device(device) if time_engine == "event"
-                       else None)
+        self.device = (resolve_device(device)
+                       if time_engine == "event"
+                       or cfg.scheduler_impl == "jit" else None)
         self.cfg = cfg
         self.rng = np.random.default_rng(cfg.seed) if rng is None else rng
         self.adj = (random_overlay(cfg.n, cfg.min_degree,
@@ -204,6 +210,9 @@ class RoundSimulator:
         self.byz = byzantine
         self._fail_run = np.zeros(cfg.n, dtype=np.int64)
         self.state = SwarmState(cfg, self.adj, self.up, self.down, self.rng)
+        # The jit slot engine's device, beside its other ``_jit_*``
+        # caches on the state (core/jit_engine.py).
+        self.state._jit_device = self.device
         # Warm-up scheduling policy: a registered name or a
         # SchedulerPolicy instance (core/policy.py).  Resolved once per
         # simulator; per-round mutable policy state is reset in run().
@@ -435,6 +444,9 @@ class RoundSimulator:
                              "quorum_k/tail_mode so the cut has a tail "
                              "path (otherwise it would silently mask)")
         engine = None
+        rec = obs.get()
+        _clk = _clock
+        _t0 = _clk()
         if self.time_engine == "event":
             engine = EventEngine(cfg.n, cfg.chunk_bytes, self.up_bps,
                                  self.down_bps, self.net, cfg.seed,
@@ -443,9 +455,6 @@ class RoundSimulator:
                 # Previous generation's tail: contends with this round's
                 # spray/warm-up/BT from t=0 (overlapped dissemination).
                 engine.set_background(*self.background)
-        rec = obs.get()
-        _clk = _clock
-        _t0 = _clk()
         if cfg.enable_preround:
             self._spray(engine)
         t_spray_s = engine.t if engine is not None else 0.0

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.dist.torrent import (aggregate_blocks, alloc_blocks,
-                                      masked_weights)
+                                      masked_weights, require_no_mesh)
 from repro_torch.models import decode_step, train_loss
 from repro_torch.optim import adamw_update
 from repro_torch.tree import flatten, unflatten
@@ -115,16 +115,22 @@ def _microbatched_value_and_grad(loss_fn, params, inp, lab,
     return acc_l * scale, None
 
 
-def make_fl_train_step(cfg, *, lr_schedule, n_pods: int,
-                       torrent_blocks: int = 4, compress: bool = False,
-                       microbatch: int = 0, ce_chunk: int = 512):
+def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
+                       rules=None, torrent_blocks: int = 4,
+                       compress: bool = False, microbatch: int = 0,
+                       ce_chunk: int = 512):
     """Returns step(params, opt, batch, weights, active) ->
     (params, opt, {"loss", "lr"}).
 
     batch: {"inputs": (n_pods, B_local, T[, D]), "labels": (...)}, the
     leading axis is the pod (FL client) axis; weights/active are
     (n_pods,) FedAvg weights and the round's participation mask.
+
+    ``mesh`` and ``rules`` are the JAX package's sharding arguments:
+    ``mesh=None`` is the single-device path (``rules`` then has nothing
+    to place); a mesh raises (:func:`require_no_mesh`).
     """
+    require_no_mesh(mesh)
     def loss_fn(p, x, y):
         return train_loss(cfg, p, x, y, ce_chunk=ce_chunk)
 
@@ -178,11 +184,16 @@ def make_fl_train_step(cfg, *, lr_schedule, n_pods: int,
 class ElasticFLStep:
     """Elastic-P FL step: the step is rebuilt per active pod count.
 
-    Each call dispatches on the batch's leading (pod) axis, so the
-    caller slices its batch to the surviving pods (e.g. with
-    :func:`repro_torch.dist.torrent.take_pods`) and the step follows:
+    ``mesh_factory(p)`` returns the mesh to train ``p`` active pods on,
+    as in the JAX package; a factory that returns ``None`` gives the
+    single-device path, and a mesh raises
+    (:func:`require_no_mesh`).  Each call dispatches on the batch's
+    leading (pod) axis, so the caller slices its batch to the surviving
+    pods (e.g. with :func:`repro_torch.dist.torrent.take_pods`) and the
+    step follows:
 
-        step = ElasticFLStep(cfg, lr_schedule=sched)
+        step = ElasticFLStep(cfg, lr_schedule=sched,
+                             mesh_factory=lambda p: None)
         params, opt, m = step(params, opt, batch4, w4, a4)   # P=4
         params, opt, m = step(params, opt, batch3, w3, a3)   # P=3
         params, opt, m = step(params, opt, batch4, w4, a4)   # cached
@@ -192,9 +203,10 @@ class ElasticFLStep:
     resets training).
     """
 
-    def __init__(self, cfg, *, lr_schedule, **step_kw):
+    def __init__(self, cfg, *, lr_schedule, mesh_factory, **step_kw):
         self.cfg = cfg
         self.lr_schedule = lr_schedule
+        self.mesh_factory = mesh_factory
         self.step_kw = dict(step_kw)
         self._cache: dict[int, object] = {}
 
@@ -202,8 +214,9 @@ class ElasticFLStep:
         """The step for ``n_pods`` active pods; built once per count."""
         if n_pods not in self._cache:
             self._cache[n_pods] = make_fl_train_step(
-                self.cfg, lr_schedule=self.lr_schedule, n_pods=n_pods,
-                **self.step_kw)
+                self.cfg, self.mesh_factory(n_pods),
+                lr_schedule=self.lr_schedule,
+                n_pods=n_pods, **self.step_kw)
         return self._cache[n_pods]
 
     @property

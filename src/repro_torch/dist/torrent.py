@@ -166,18 +166,37 @@ def aggregate_blocks(blocks: torch.Tensor, meta, weights, active, *,
     return _unflatten(agg, meta)
 
 
-def torrent_fedavg(updates, weights, active, *, n_blocks: int = 4,
-                   compress: bool = False):
+def require_no_mesh(mesh) -> None:
+    """Refuse a device mesh: the port runs every pod on one device.
+
+    The JAX package's mesh arguments are accepted so its call shapes
+    run unchanged; ``None`` is the single-device path.  The multi-GPU
+    ring over ``torch.distributed`` is ROADMAP.md queue 1 item 2.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "a device mesh is not ported to repro_torch yet (ROADMAP.md "
+            "queue 1 item 2: the multi-GPU torrent ring); pass mesh=None "
+            "or a mesh_factory that returns None for the single-device "
+            "path")
+
+
+def torrent_fedavg(updates, weights, active, *, mesh=None,
+                   n_blocks: int = 4, compress: bool = False):
     """Masked FedAvg of per-pod updates via the torrent collective.
 
     updates: pytree whose leaves have leading axis P (stacked per-pod
     updates); weights, active: (P,).  Returns the aggregate pytree with
     the leading axis removed and each leaf in its input dtype.
+    ``mesh=None`` is the single-device path; a mesh raises
+    (:func:`require_no_mesh`).
     """
+    require_no_mesh(mesh)
     blocks, meta = _flatten_updates(updates, n_blocks)
     return aggregate_blocks(blocks, meta, weights, active,
                             compress=compress)
 
 
 __all__ = ["alloc_blocks", "aggregate_blocks", "masked_weights",
-           "ring_allgather_emulated", "take_pods", "torrent_fedavg"]
+           "require_no_mesh", "ring_allgather_emulated", "take_pods",
+           "torrent_fedavg"]

@@ -12,11 +12,14 @@ plain versions):
 * ``rglru``     — the RG-LRU linear recurrence (recurrentgemma).
 * ``mlstm``     — the chunkwise-parallel mLSTM from a zero state
                   (xLSTM prefill).
+* ``slots``     — the GPU slot engine's bitplane kernels (stage-1
+                  planes, overlap rank counts, ranked extraction); no
+                  TPU kernel's counterpart (``core/jit_engine.py``).
 
 ``LAUNCHES`` counts the launches of each kernel (see ``_build.py``).
 """
-from . import attention, fedavg, mlstm, ops, quantize, ref, rglru
+from . import attention, fedavg, mlstm, ops, quantize, ref, rglru, slots
 from ._build import LAUNCHES, reset_launches
 
 __all__ = ["attention", "fedavg", "mlstm", "ops", "quantize", "ref",
-           "rglru", "LAUNCHES", "reset_launches"]
+           "rglru", "slots", "LAUNCHES", "reset_launches"]

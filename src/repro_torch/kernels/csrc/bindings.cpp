@@ -1,8 +1,8 @@
 // PyTorch bindings for the launchers in kernels.h.
 //
 // The only source that includes torch/extension.h.  It is called only
-// by the wrappers in fedavg.py, quantize.py, attention.py, rglru.py and
-// mlstm.py,
+// by the wrappers in fedavg.py, quantize.py, attention.py, rglru.py,
+// mlstm.py and slots.py,
 // which check device, dtype, shape, contiguity and alignment and
 // allocate every output and scratch tensor with torch.empty; the typed
 // data_ptr<T>() calls below still refuse a tensor of another dtype.  Each entry point launches on
@@ -231,6 +231,59 @@ void mlstm_chunkwise_tc(const at::Tensor& q, const at::Tensor& k,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void slot_planes(const at::Tensor& have, const at::Tensor& cand,
+                 const at::Tensor& owner, const at::Tensor& allowed,
+                 const at::Tensor& recv_ok, int64_t m_cnt, bool nonowner,
+                 bool ungated, const at::Tensor& plane_a,
+                 const at::Tensor& plane_b, const at::Tensor& need,
+                 const at::Tensor& need_cnt, const at::Tensor& sup_any) {
+  const c10::cuda::CUDAGuard guard(have.device());
+  check_launch(repro_torch::launch_slot_planes(
+                   have.data_ptr<int32_t>(), have.size(0), have.size(1),
+                   cand.data_ptr<int32_t>(), owner.data_ptr<int32_t>(),
+                   allowed.data_ptr<bool>(), recv_ok.data_ptr<bool>(), m_cnt,
+                   cand.size(0), nonowner ? 1 : 0, ungated ? 1 : 0,
+                   plane_a.data_ptr<int32_t>(),
+                   nonowner ? plane_b.data_ptr<int32_t>() : nullptr,
+                   need.data_ptr<int32_t>(), need_cnt.data_ptr<int32_t>(),
+                   sup_any.data_ptr<bool>(),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "slot_planes");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void overlap_rank(const at::Tensor& plane_a, const at::Tensor& plane_b,
+                  bool has_b, const at::Tensor& need, const at::Tensor& u_c,
+                  const at::Tensor& sbc, const at::Tensor& cnt_b) {
+  const c10::cuda::CUDAGuard guard(need.device());
+  check_launch(repro_torch::launch_overlap_rank(
+                   plane_a.data_ptr<int32_t>(), plane_b.data_ptr<int32_t>(),
+                   has_b ? 1 : 0, need.data_ptr<int32_t>(),
+                   u_c.data_ptr<int64_t>(), need.size(0), need.size(1),
+                   sbc.data_ptr<int32_t>(), cnt_b.data_ptr<int32_t>(),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "overlap_rank");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void extract_ranked(const at::Tensor& plane_a, const at::Tensor& plane_b,
+                    bool has_b, const at::Tensor& need,
+                    const at::Tensor& u_c, const at::Tensor& take,
+                    const at::Tensor& t_a, const at::Tensor& sbc,
+                    const at::Tensor& cols) {
+  const c10::cuda::CUDAGuard guard(need.device());
+  check_launch(repro_torch::launch_extract_ranked(
+                   plane_a.data_ptr<int32_t>(), plane_b.data_ptr<int32_t>(),
+                   has_b ? 1 : 0, need.data_ptr<int32_t>(),
+                   u_c.data_ptr<int64_t>(), take.data_ptr<int32_t>(),
+                   t_a.data_ptr<int32_t>(), sbc.data_ptr<int32_t>(),
+                   need.size(0), need.size(1), cols.size(1),
+                   cols.data_ptr<int32_t>(),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "extract_ranked");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -271,4 +324,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("mlstm_chunkwise_tc", &mlstm_chunkwise_tc,
         "Chunkwise mLSTM on TF32 wgmma (q, k, v, i, f, h, hbuf, C, n, m, "
         "scratch, chunk)");
+  m.def("slot_planes", &slot_planes,
+        "Slot engine stage 1 (have, cand, owner, allowed, recv_ok, m_cnt, "
+        "nonowner, ungated, plane_a, plane_b, need, need_cnt, sup_any)");
+  m.def("overlap_rank", &overlap_rank,
+        "Per-round overlap rank counts (plane_a, plane_b, has_b, need, "
+        "u_c, sbc, cnt_b)");
+  m.def("extract_ranked", &extract_ranked,
+        "Per-round ranked extraction (plane_a, plane_b, has_b, need, u_c, "
+        "take, t_a, sbc, cols); clears the picks from need");
 }

@@ -137,4 +137,40 @@ cudaError_t launch_mlstm_chunkwise_tc(
     int64_t chunk, int64_t sb, int64_t sh, int64_t st, int64_t gb,
     int64_t gh, int64_t gt, int dtype, cudaStream_t stream);
 
+// The GPU slot engine's bitplane kernels (slots.cu).  Words are the
+// uint32 bit patterns of int32 tensors; planes are (n, W) contiguous,
+// W = m_pad / 32, and u_c (n,) int64 indexes their rows.  Each returns
+// the error of its launch (cudaGetLastError).
+//   launch_slot_planes: have (n, w_full); cand, owner (m_pad,) int32;
+//     allowed (m_pad,), recv_ok (n,) bool.  Writes plane_a (and, when
+//     nonowner, plane_b), need, need_cnt (n,) int32 and sup_any (n,).
+//   launch_overlap_rank: sbc (n, S) int32, the inclusive superblock
+//     cumsum of popc(plane_a[u_c] & need) (S = 16 when W % 16 == 0,
+//     else 1), and cnt_b (n,) int32, popc(plane_b[u_c] & need) (0
+//     without has_b).
+//   launch_extract_ranked: cols (n, t_cap) int32, the first t_a set bits
+//     of plane_a[u_c] & need (sbc its cumsum), then up to take of
+//     plane_b[u_c] & need, -1 past; clears them from need.  Needs
+//     0 <= t_a <= take <= t_cap.
+cudaError_t launch_slot_planes(const int32_t* have, int64_t n,
+                               int64_t w_full, const int32_t* cand,
+                               const int32_t* owner, const bool* allowed,
+                               const bool* recv_ok, int64_t m_cnt,
+                               int64_t m_pad, int nonowner, int ungated,
+                               int32_t* plane_a, int32_t* plane_b,
+                               int32_t* need, int32_t* need_cnt,
+                               bool* sup_any, cudaStream_t stream);
+cudaError_t launch_overlap_rank(const int32_t* plane_a,
+                                const int32_t* plane_b, int has_b,
+                                const int32_t* need, const int64_t* u_c,
+                                int64_t n, int64_t w_words, int32_t* sbc,
+                                int32_t* cnt_b, cudaStream_t stream);
+cudaError_t launch_extract_ranked(const int32_t* plane_a,
+                                  const int32_t* plane_b, int has_b,
+                                  int32_t* need, const int64_t* u_c,
+                                  const int32_t* take, const int32_t* t_a,
+                                  const int32_t* sbc, int64_t n,
+                                  int64_t w_words, int64_t t_cap,
+                                  int32_t* cols, cudaStream_t stream);
+
 }  // namespace repro_torch

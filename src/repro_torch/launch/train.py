@@ -8,8 +8,8 @@ CUDA kernels on a GPU) -> AdamW, with round-boundary checkpointing and
 restart (``--resume`` semantics: the latest checkpoint in ``--ckpt``).
 
 On one card the P pods share the device through the single-device
-torrent path, so there is no device-count check and no mesh: a re-mesh
-is a new pod count for ``ElasticFLStep``.
+torrent path, so there is no device-count check and the mesh factory
+returns ``None``: a re-mesh is a new pod count for ``ElasticFLStep``.
 
 ``--drop-pod`` is the recovery drill: at ``--drop-at`` (default
 steps/2) the run checkpoints, shrinks the collective from P to P-1
@@ -132,9 +132,13 @@ def main(argv=None, history: list | None = None):
             print(f"resumed from round {r} ({active_pods} pods)",
                   flush=True)
 
+    def mesh_factory(p: int):
+        return None                     # every pod on this one device
+
     step_fn = ElasticFLStep(
         cfg, lr_schedule=linear_warmup_cosine(
-            args.lr, 10, max(args.steps, 20)))
+            args.lr, 10, max(args.steps, 20)),
+        mesh_factory=mesh_factory)
     rng = np.random.default_rng(0)
     b_local = max(args.batch // n_pods, 1)
     frames = cfg.d_model if not cfg.has_embedding else 0

@@ -9,8 +9,9 @@ against the JAX package run in this process), whole round results
 n = 16, K = 540 ``DATACENTER`` swarm that ``chip_smoke.py`` aggregates
 on the card, the Eq. 1 to 5 bounds, the max-flow stage bound, a
 Byzantine round, the audit, the policy registry and its visibility
-gate, the recorder, the jitted engine (not ported yet) and the event
-engine's refusal to run on the CPU unless asked.
+gate, the recorder and the event engine's refusal to run on the CPU
+unless asked.  The jit slot engine has its own file,
+tests/test_torch_jit_engine.py.
 """
 import dataclasses
 import hashlib
@@ -354,11 +355,54 @@ def test_measured_clock_installs_and_restores():
     assert tsim_mod._clock is tsim_mod._zero_clock
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_jit_engine_is_not_ported(mode):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        TSim(TConfig(n=12, chunks_per_update=8, min_degree=4, s_max=500,
-                     seed=1, scheduler=mode, scheduler_impl="jit")).run()
+def test_round_clock_starts_before_the_event_engine(monkeypatch):
+    """The round clock's first reading precedes the ``EventEngine``'s
+    construction in both packages (repro/core/simulator.py:433-441):
+    with an injected clock that the engine's constructor advances by
+    1000, ``timings["spray_s"]`` and the ``round.spray`` and
+    ``round.total`` spans' ``wall_s`` are equal in both and include the
+    construction."""
+    import repro.core.simulator as jsim_mod
+    import repro.net as jnet
+
+    import repro_torch.net as tnet
+
+    def run(sim_mod, engine_cls, obs_mod, make):
+        now = [0.0]
+
+        def clock():
+            now[0] += 1.0
+            return now[0]
+
+        init = engine_cls.__init__
+
+        def slow_init(self, *a, **kw):
+            init(self, *a, **kw)
+            now[0] += 1000.0
+
+        monkeypatch.setattr(engine_cls, "__init__", slow_init)
+        sim_mod.set_clock(clock)
+        try:
+            with obs_mod.recording() as rec:
+                res = make()
+        finally:
+            sim_mod.set_clock(None)
+            monkeypatch.setattr(engine_cls, "__init__", init)
+        spans = {r["name"]: r["wall_s"] for r in rec.rows
+                 if r.get("name") in ("round.spray", "round.total")}
+        return res.timings, spans
+
+    kw = dict(n=12, chunks_per_update=8, min_degree=4, s_max=500, seed=4)
+    jt, js = run(jsim_mod, jnet.EventEngine, jobs,
+                 lambda: jsim_mod.RoundSimulator(
+                     JConfig(**kw), time_engine="event").run())
+    tt, ts = run(tsim_mod, tnet.EventEngine, tobs,
+                 lambda: TSim(TConfig(**kw), time_engine="event",
+                              device="cpu").run())
+    assert tt == jt and ts == js
+    assert tt["spray_s"] >= 1000.0
+    assert ts["round.spray"] == tt["spray_s"] >= 1000.0
+    assert ts["round.total"] >= 1000.0
 
 
 def test_event_engine_refuses_the_cpu_without_a_device(monkeypatch):

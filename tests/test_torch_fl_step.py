@@ -296,7 +296,8 @@ def test_zero_active_mass_round_is_a_noop():
 
 def test_elastic_step_rebuilds_per_pod_count():
     _, tcfg, _, (tp, to), _ = _step_setup(4)
-    step = ElasticFLStep(tcfg, lr_schedule=schedules.constant_lr(1e-3))
+    step = ElasticFLStep(tcfg, lr_schedule=schedules.constant_lr(1e-3),
+                         mesh_factory=lambda p: None)
     rng = np.random.default_rng(0)
     for p in (4, 3, 4):
         batch = {"inputs": torch.as_tensor(rng.integers(0, 128, (p, 2, 8))),
@@ -305,6 +306,54 @@ def test_elastic_step_rebuilds_per_pod_count():
         assert math.isfinite(float(m["loss"]))
     assert step.pod_counts == [3, 4]
     assert int(to.step) == 3
+
+
+def test_reference_mesh_call_shapes():
+    """The JAX package's mesh arguments, in its own call shapes
+    (``repro/launch/train.py:116-141``): ``ElasticFLStep(cfg,
+    lr_schedule=..., mesh_factory=mf)``, ``make_fl_train_step(cfg, mesh,
+    lr_schedule=..., n_pods=..., rules=...)`` and ``torrent_fedavg(...,
+    mesh=...)``.  ``None``, or a factory returning ``None``, runs the
+    single-device path bit for bit; a mesh raises ``NotImplementedError``
+    naming ROADMAP queue 1 item 2."""
+    _, tcfg, _, (tp, to), batches = _step_setup(4)
+    sched = schedules.linear_warmup_cosine(1e-2, 10, 20)
+    batch = tree_map(torch.as_tensor, batches[0])
+    w, a = torch.ones(4), torch.tensor([1., 1., 0., 1.])
+    clone = (lambda tree: tree_map(torch.clone, tree))
+    asked = []
+
+    def mesh_factory(p: int):
+        asked.append(p)
+        return None
+
+    want = make_fl_train_step(tcfg, None, lr_schedule=sched, n_pods=4)(
+        clone(tp), clone(to), batch, w, a)
+    step = ElasticFLStep(tcfg, lr_schedule=sched, mesh_factory=mesh_factory)
+    got = step(clone(tp), clone(to), batch, w, a)
+    direct = make_fl_train_step(tcfg, None, lr_schedule=sched, n_pods=4,
+                                rules={"batch": "data"})(
+        clone(tp), clone(to), batch, w, a)
+    assert asked == [4] and step.pod_counts == [4]
+    for out in (got, direct):
+        for x, y in zip(leaves(out[:2]), leaves(want[:2])):
+            assert torch.equal(x, y)
+        assert float(out[2]["loss"]) == float(want[2]["loss"])
+    with pytest.raises(TypeError, match="mesh_factory"):
+        ElasticFLStep(tcfg, lr_schedule=sched)    # required, as in JAX
+    mesh = object()                     # what make_pod_mesh would return
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        make_fl_train_step(tcfg, mesh, lr_schedule=sched, n_pods=4)
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        ElasticFLStep(tcfg, lr_schedule=sched,
+                      mesh_factory=lambda p: mesh)(tp, to, batch, w, a)
+    ups = tree_map(torch.from_numpy, _updates())
+    agg = torrent.torrent_fedavg(ups, w, a, mesh=None, n_blocks=4)
+    for x, y in zip(leaves(agg),
+                    leaves(torrent.torrent_fedavg(ups, w, a, n_blocks=4))):
+        assert torch.equal(x, y)
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        torrent.torrent_fedavg(ups, w, a, mesh=mesh)
 
 
 # ----------------------------------------------------------------------
