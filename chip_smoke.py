@@ -36,7 +36,9 @@ and imports nothing of the JAX package:
    and 32, chunk 64 and 128, one chunk and 2048 steps), f32 (5e-4 on h,
    C, n and m) and bf16 (3e-2), all finite; the slot engine's
    slot_planes, overlap_rank and extract_ranked on ``SLOT_CASES`` in
-   every plane layout, exactly;
+   every plane layout, exactly, and slot_rounds against its plain loop
+   on the card on seeded random slots of those sizes (every mode, plane
+   layout, a non-symmetric overlay, tied bases), exactly;
 4. the main paths, each with the launch counters set to 0 just before
    it and read just after:
    a. training: the train driver for 4 uncompressed steps of qwen3-1.7b
@@ -136,20 +138,27 @@ and imports nothing of the JAX package:
    launch counters and the engine's counts set to 0 before each round:
    a. benchmarks/bench_scheduler.py's sweep point n 500 (K 206, GFF,
       k_term 1030, cand_cap 8192, warm-up only) on the card: legal,
-      Eq. 1, not failed open, ``slot_planes``, ``overlap_rank`` and
-      ``extract_ranked`` each launched; t_warm and warm-up utilisation
+      Eq. 1, not failed open, ``slot_planes`` and ``slot_rounds``
+      launched once a slot, ``overlap_rank`` and ``extract_ranked``
+      never, two host reads a slot; t_warm and warm-up utilisation
       within the equivalence tests' bands of the batched engine on the
       host; the same round with ``device="cpu"`` byte-identical; slot
-      20's ``_slot_rounds`` on the card equal to the CPU's, its kernel
-      inputs held exactly against the plain versions and timed, and
-      the slot traced by ``torch.profiler`` (launches, copies, busy);
-      the warm-up seconds, the ``PHASE_S`` split, rounds and host reads
-      a slot, and the batched engine's seconds logged;
+      20's ``_slot_rounds`` on the card equal to the plain loop on the
+      card (``impl="torch"``) and on the CPU; its kernel inputs held
+      exactly against the plain versions and timed (``slot_rounds`` a
+      slot, with its rounds, CTAs and ptxas registers and spills;
+      ``overlap_rank`` and ``extract_ranked`` on the plain loop's first
+      round, off the path), and the slot traced by ``torch.profiler``
+      (launches, cooperative ones included, copies, busy); the warm-up
+      seconds, the ``PHASE_S`` split, rounds and host reads a slot, and
+      the batched engine's seconds logged;
    b. the headline round (n 100, K 64, s_max 100,000, exact BitTorrent
       through the engine): byte-identical on the card and the CPU,
-      legal, t_round within the batched engine's band;
+      legal, t_round within the batched engine's band, the launches and
+      reads of (a);
    c. the sweep's top, n 5000, on the card: legal, Eq. 1, not failed
-      open, its timings, and the kernels held and timed at its shapes;
+      open, the launches and reads of (a), its timings, and the kernels
+      held and timed at its shapes;
    d. the jit session twin (n 20, K 16, churn 0.1, two rounds) on the
       slot and event engines: the card's traces equal the CPU's byte
       for byte;
@@ -399,6 +408,8 @@ def card_line() -> str:
 
 
 PTXAS_SOURCES = ("attention.cu", "mlstm.cu", "rglru.cu", "slots.cu")
+# build()'s ptxas report: (source, mangled kernel) -> registers, spills
+PTXAS: dict = {}
 
 
 def build() -> float:
@@ -436,11 +447,26 @@ def build() -> float:
         check(proc.returncode == 0,
               f"nvcc -Xptxas -v {src}:\n{reports[src]}")
         injected = 0
+        func = None
         for line in reports[src].splitlines():
             if "C7519" in line:          # ptxas fenced a wgmma's registers
                 injected += 1
-            elif any(w in line for w in ("entry function", "registers",
-                                         "spill")):
+                continue
+            if "entry function '" in line:
+                func = line.split("entry function '", 1)[1].split("'")[0]
+                PTXAS[(src, func)] = {}
+            elif func is not None and "spill stores" in line:
+                words = line.replace(",", " ").split()
+                PTXAS[(src, func)]["spill_stores"] = int(
+                    words[words.index("spill") - 2])
+            elif func is not None and "Used" in line and "registers" in line:
+                words = line.split()
+                PTXAS[(src, func)]["registers"] = int(
+                    words[words.index("registers,") - 1]
+                    if "registers," in words
+                    else words[words.index("Used") + 1])
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 log(f"{src} {line.strip()}")
         if injected:
             log(f"{src}: ptxas injected {injected} warpgroup.arrive fences "
@@ -813,6 +839,101 @@ def check_small_slots(device="cuda", cases=SLOT_CASES) -> None:
         torch.cuda.synchronize()
     log(f"slot kernels: slot_planes, overlap_rank and extract_ranked equal "
         f"to their plain versions on {held} cases")
+
+
+def random_slot(case, mode_id: int, nonowner: bool, ungated: bool,
+                variant: int, device="cpu"):
+    """A seeded slot of ``case``'s (n, m_pad, m_cnt, w_full) size for
+    ``slots.slot_rounds``: the planes of a random inventory, a random
+    overlay (``variant`` 1: not symmetric, with a peer that no one lists;
+    2: noise, tie and priority bases drawn from 3 values, so scores,
+    keys and priorities tie), random budgets, some of them 0.  Returns
+    the wrapper's positional arguments and keywords on ``device``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.jit_engine import _pow2, _transpose_lists
+    from repro_torch.kernels import slots
+    n, m_pad, m_cnt, w_full = case
+    g = np.random.default_rng([n, m_pad, mode_id, nonowner, ungated,
+                               variant])
+    have = g.integers(-2 ** 31, 2 ** 31, size=(n, w_full),
+                      dtype=np.int64).astype(np.int32)
+    have[::2] &= g.integers(-2 ** 31, 2 ** 31, size=have[::2].shape,
+                            dtype=np.int64).astype(np.int32)
+    cand = g.choice(w_full * 32, size=m_pad, replace=False)
+    host = [torch.from_numpy(have), torch.from_numpy(cand).int(),
+            torch.from_numpy(g.integers(0, n, size=m_pad)).int(),
+            torch.from_numpy(g.random(m_pad) < 0.5),
+            torch.from_numpy(g.random(n) < 0.85)]
+    planes = slots.slot_planes(*host, m_cnt, nonowner=nonowner,
+                               ungated=ungated, impl="torch")
+    adj = g.random((n, n)) < min(6.0 / n, 0.5)
+    if variant != 1:
+        adj |= adj.T
+    else:
+        adj[:, n - 1] = False            # no one lists the last peer
+    np.fill_diagonal(adj, False)
+    deg = adj.sum(1)
+    nbr = np.full((n, _pow2(max(int(deg.max(initial=1)), 1))), -1, np.int32)
+    for v in range(n):
+        row = np.flatnonzero(adj[v])
+        nbr[v, :row.size] = g.permutation(row)
+    in_nbr = _transpose_lists(nbr)
+    rem_up = g.integers(0, 40, size=n).astype(np.int32)
+    rem_down = g.integers(0, 60, size=n).astype(np.int32)
+    rem_up[::7] = 0
+    hi = 3 if variant == 2 else 2 ** 32
+    bases = tuple(torch.from_numpy(
+        g.integers(0, hi, size=shape, dtype=np.int64).astype(np.uint32)
+        .view(np.int32)) for shape in (nbr.shape, (n,), (n,)))
+    on = (lambda t: t if t is None else t.to(device))
+    args = [*(on(t) for t in planes), on(torch.from_numpy(nbr)),
+            on(torch.from_numpy(in_nbr)), on(torch.from_numpy(rem_up)),
+            on(torch.from_numpy(rem_down)), tuple(on(b) for b in bases)]
+    kw = dict(mode_id=mode_id, t_cap=64, r_max=16,
+              batch_cap=(8 if variant == 0 else 1 << 30), tau=2)
+    return args, kw
+
+
+def check_small_slot_rounds(device="cuda", cases=SLOT_CASES) -> int:
+    """``slots.slot_rounds`` against ``slot_rounds_plain`` on the same
+    device, exactly, on seeded random slots of each of ``cases``' sizes
+    (``random_slot``): the three modes, every plane layout and the three
+    overlay and base variants.  tests/test_torch_jit_engine.py runs it
+    case by case.  Returns the number of rounds held."""
+    import torch
+
+    from repro_torch.kernels import slots
+    held = rounds = 0
+    for case in cases:
+        for mode_id in (0, 1, 2):
+            for nonowner, ungated in ((True, False), (False, False),
+                                      (False, True), (True, True)):
+                for variant in (0, 1, 2):
+                    args, kw = random_slot(case, mode_id, nonowner, ungated,
+                                           variant, device)
+                    snd, col, r = slots.slot_rounds(*args, **kw)
+                    psnd, pcol, pr = slots.slot_rounds_plain(
+                        *args[:6], *args[7:], **kw)
+                    what = (f"slot_rounds {case} mode {mode_id} nonowner "
+                            f"{nonowner} ungated {ungated} variant "
+                            f"{variant}")
+                    check(torch.equal(r, pr), f"{what}: {int(r)} rounds "
+                          f"against {int(pr)}")
+                    check(torch.equal(snd, psnd),
+                          f"{what}: out_snd differs in "
+                          f"{int((snd != psnd).sum())} cells")
+                    check(torch.equal(col, pcol),
+                          f"{what}: out_col differs in "
+                          f"{int((col != pcol).sum())} cells")
+                    held += 1
+                    rounds += int(pr)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    log(f"slot_rounds: equal to slot_rounds_plain on {held} random slots "
+        f"({rounds} rounds) on {device}")
+    return rounds
 
 
 def check_small_mlstm() -> None:
@@ -2101,8 +2222,13 @@ SLOT_K = 206
 SLOT_CAP = 8192
 SLOT_NS = (500, 5000)           # the sweep's bottom and top
 SLOT_CAPTURE_AT = 20            # the slot whose kernel inputs are kept
-SLOT_KERNELS = ("slot_planes", "overlap_rank", "extract_ranked")
+SLOT_KERNELS = ("slot_planes", "slot_rounds", "overlap_rank",
+                "extract_ranked")
+# the kernels a slot launches, once each; the other two run
+# slot_rounds' row bodies alone and are off the path since it fused them
+SLOT_PATH_KERNELS = ("slot_planes", "slot_rounds")
 SLOT_LINES = {"slot_planes": "src/repro/core/jit_engine.py:358",
+              "slot_rounds": "src/repro/core/jit_engine.py:559",
               "overlap_rank": "src/repro/core/jit_engine.py:462",
               "extract_ranked": "src/repro/core/jit_engine.py:273"}
 SLOT_PROFILED_SLOTS = 1         # slot replays traced by torch.profiler
@@ -2150,13 +2276,19 @@ def capture_slot(at: int):
 
 
 def capture_kernel_inputs(slot_args) -> dict:
-    """Replay a captured slot on the card with each slot kernel's
-    wrapper keeping (clones of) the inputs of its first call: stage 1
-    and the slot's first grant round."""
+    """Replay a captured slot on the card with the path's wrappers
+    (``slot_planes``, ``slot_rounds``) keeping (clones of) the inputs of
+    their call, then through the plain loop (``impl="torch"``) with the
+    plain versions of the two row bodies keeping those of their first
+    call (the slot's first grant round), for ``overlap_rank`` and
+    ``extract_ranked``, which the path no longer launches."""
     from repro_torch.core import jit_engine as je
     from repro_torch.kernels import slots
     got = {}
-    orig = {name: getattr(slots, name) for name in SLOT_KERNELS}
+    hooks = {"slot_planes": "slot_planes", "slot_rounds": "slot_rounds",
+             "overlap_rank": "overlap_rank_plain",
+             "extract_ranked": "extract_ranked_plain"}
+    orig = {name: getattr(slots, attr) for name, attr in hooks.items()}
 
     def recorder(name):
         def f(*a, **kw):
@@ -2165,13 +2297,14 @@ def capture_kernel_inputs(slot_args) -> dict:
             return orig[name](*a, **kw)
         return f
 
-    for name in SLOT_KERNELS:
-        setattr(slots, name, recorder(name))
+    for name, attr in hooks.items():
+        setattr(slots, attr, recorder(name))
     try:
         je._slot_rounds(*slot_args)
+        je._slot_rounds(*slot_args, impl="torch")
     finally:
-        for name in SLOT_KERNELS:
-            setattr(slots, name, orig[name])
+        for name, attr in hooks.items():
+            setattr(slots, attr, orig[name])
     check(set(got) == set(SLOT_KERNELS), f"slot kernels not called: {got}")
     return got
 
@@ -2207,6 +2340,14 @@ def _extract_bytes(a, cols) -> float:
     return (g * w * 4.0 + planes * senders * w * 4.0 + n * 16.0
             + g * sbc.shape[1] * 4.0 + cols.numel() * 4.0
             + float(take.sum()) * 4.0)
+
+
+def _rounds_bytes(a, outs) -> float:
+    """slot_rounds' inputs read once (the planes, counts and budgets, the
+    neighbor lists both ways, the bases) and its grids written once."""
+    import torch
+    ins = [t for t in a[:9] if torch.is_tensor(t)] + list(a[9])
+    return float(sum(t.numel() * t.element_size() for t in (*ins, *outs)))
 
 
 def slot_kernel_rows(inputs: dict, counts: dict, slots_run: int,
@@ -2256,6 +2397,10 @@ def slot_kernel_rows(inputs: dict, counts: dict, slots_run: int,
             ms = time_fresh_ms(lambda b: on(b, "cuda"), need0)
             plain = time_fresh_ms(lambda b: on(b, "torch"), need0, runs=3)
             nbytes = _extract_bytes(a, got[0])
+        elif name == "slot_rounds":
+            ms = time_ms(lambda: fn(*a, **kw, impl="cuda"))
+            plain = time_ms(lambda: fn(*a, **kw, impl="torch"), runs=3)
+            nbytes = _rounds_bytes(a, got)
         else:
             ms = time_ms(lambda: run("cuda"))
             plain = time_ms(lambda: run("torch"), runs=3)
@@ -2265,24 +2410,39 @@ def slot_kernel_rows(inputs: dict, counts: dict, slots_run: int,
         row = _row(name, "csrc/slots.cu", SLOT_LINES[name], counts, 0.0, ms,
                    plain, bound, None)
         row["launches_per_slot"] = counts.get(name, 0) / max(slots_run, 1)
+        row["on_path"] = name in SLOT_PATH_KERNELS
         row["library"] = "none (no PyTorch popcount op)"
         width = (a[1].shape[0] // 32 if name == "slot_planes"
                  else a[2].shape[1])
         row["shape"] = f"{label}: planes ({a[0].shape[0]}, {width}) words"
+        extra = ""
+        if name == "slot_rounds":
+            from repro_torch.kernels import _build
+            row["rounds"] = int(got[2][0])
+            row["grid_ctas"] = _build.extension().slot_rounds_grid(
+                a[2], a[2].shape[0])
+            row["ptxas"] = next((v for (src, f), v in PTXAS.items()
+                                 if "slot_rounds_kernel" in f), None)
+            extra = (f", {row['rounds']} rounds, {row['grid_ctas']} CTAs "
+                     f"of 256 threads, ptxas {row['ptxas']}")
+        elif not row["on_path"]:
+            extra = ", off the path (fused into slot_rounds)"
         rows.append(row)
         log(f"{name} {label}: {ms:.4f} ms against a bound of "
             f"{bound[0]:.4f} ms ({bound[1]}, {100 * bound[0] / ms:.1f}%), "
             f"plain {plain:.4f} ms, library none (no PyTorch popcount op); "
             f"{counts.get(name, 0)} launches, "
-            f"{row['launches_per_slot']:.2f} a slot; equal to the plain "
-            "version")
+            f"{row['launches_per_slot']:.2f} a slot{extra}; equal to the "
+            "plain version")
     return rows
 
 
 def profile_slot(slot_args) -> dict:
     """One captured slot replayed on the card under ``torch.profiler``:
-    kernel launches and device-to-host copies (runtime calls), device
-    time and the busy share of the traced wall time."""
+    kernel launches (``cudaLaunchKernel`` and the cooperative
+    ``cudaLaunchCooperativeKernel``) and copies (runtime calls), device
+    time and the busy share of the traced wall time (None, not
+    measured, when the trace holds no device activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2300,15 +2460,17 @@ def profile_slot(slot_args) -> dict:
     for e in prof.key_averages():
         dev_us += (getattr(e, "self_device_time_total", None)
                    or getattr(e, "self_cuda_time_total", 0) or 0)
-        if e.key == "cudaLaunchKernel":
+        if e.key in ("cudaLaunchKernel", "cudaLaunchCooperativeKernel"):
             launches += e.count
         elif e.key in ("cudaMemcpyAsync", "cudaMemcpy"):
             copies += e.count
     k = SLOT_PROFILED_SLOTS
+    # a trace without device activity measured none: say so, not 0
+    dev_ms = dev_us / k / 1e3 if dev_us > 0 else None
     return {"rounds": rounds, "launches_per_slot": launches / k,
-            "copies_per_slot": copies / k, "device_ms_per_slot":
-            dev_us / k / 1e3, "wall_ms_per_slot": 1e3 * wall / k,
-            "busy": dev_us / max(1e6 * wall, 1e-9)}
+            "copies_per_slot": copies / k, "device_ms_per_slot": dev_ms,
+            "wall_ms_per_slot": 1e3 * wall / k,
+            "busy": None if dev_ms is None else dev_us / (1e6 * wall)}
 
 
 def jit_round(cfg, device, warmup_only: bool, capture: int | None = None):
@@ -2349,6 +2511,21 @@ def _bands(rj, rb, what: str, t_round: bool = False) -> None:
     if t_round:
         check(abs(rj.t_round - rb.t_round) <= max(5, 0.35 * rb.t_round),
               f"{what}: t_round {rj.t_round} against batched {rb.t_round}")
+
+
+def check_slot_launches(launches: dict, counts: dict, what: str) -> None:
+    """A slot-engine path launched slot_planes and slot_rounds once a
+    slot each, overlap_rank and extract_ranked never, and read the host
+    twice a slot (rounds, then the grids)."""
+    slots_run = counts["slots"]
+    check(slots_run > 0, f"{what}: no slot ran")
+    for k in SLOT_KERNELS:
+        want = slots_run if k in SLOT_PATH_KERNELS else 0
+        check(launches.get(k, 0) == want,
+              f"{what}: {k} launched {launches.get(k, 0)} times in "
+              f"{slots_run} slots (want {want})")
+    check(counts["host_reads"] == 2 * slots_run,
+          f"{what}: {counts['host_reads']} host reads in {slots_run} slots")
 
 
 def _slot_line(label, res, host_s, phases, counts, launches) -> dict:
@@ -2414,8 +2591,7 @@ def run_slot_engine_paths(device=None) -> tuple[dict, list[dict]]:
           f"jit n={n}: a warm-up transfer breaks Eq. 1")
     replay_legality(cfg, res, check_tau=True)
     if card:
-        for k in SLOT_KERNELS:
-            check(launches.get(k, 0) > 0, f"jit n={n}: {k} never launched")
+        check_slot_launches(launches, cnt, f"jit n={n}")
     out[f"n{n}"] = _slot_line(f"n={n} K={SLOT_K} on {dev}", res, host_s, ph,
                               cnt, launches)
     t0 = time.perf_counter()
@@ -2436,20 +2612,33 @@ def run_slot_engine_paths(device=None) -> tuple[dict, list[dict]]:
                     (tuple(b.cpu() for b in a) if isinstance(a, tuple) else a)
                     for a in slot_args]
         g, c = je._slot_rounds(*slot_args), je._slot_rounds(*cpu_args)
-        check(g[2] == c[2] and bool((g[0].cpu() == c[0]).all())
-              and bool((g[1].cpu() == c[1]).all()),
-              f"jit n={n}: _slot_rounds on the card differs from the CPU")
-        log(f"jit n={n}: slot {SLOT_CAPTURE_AT}'s _slot_rounds equal on the "
-            f"card and the CPU ({g[2]} rounds)")
+        t = je._slot_rounds(*slot_args, impl="torch")
+        for other, where in ((c, "the CPU"), (t, "the plain loop on the "
+                                                  "card")):
+            check(g[2] == other[2]
+                  and bool((g[0] == other[0].to(g[0].device)).all())
+                  and bool((g[1] == other[1].to(g[1].device)).all()),
+                  f"jit n={n}: _slot_rounds on the card differs from "
+                  f"{where}")
+        log(f"jit n={n}: slot {SLOT_CAPTURE_AT}'s _slot_rounds on the card "
+            f"(slot_rounds) equal to the plain loop on the card and on the "
+            f"CPU ({g[2]} rounds)")
         rows += slot_kernel_rows(capture_kernel_inputs(slot_args), launches,
                                  cnt["slots"], f"n {n}")
         out[f"n{n}"]["profile"] = prof = profile_slot(slot_args)
+        # the slot's two kernels by CUDA events (their rows above)
+        prof["kernel_ms_per_slot"] = sum(
+            r["ms"] for r in rows if r["name"] in SLOT_PATH_KERNELS)
+        device = ("not measured (the trace held no device time)"
+                  if prof["device_ms_per_slot"] is None else
+                  f"{prof['device_ms_per_slot']:.3f} ms (busy "
+                  f"{100 * prof['busy']:.1f}%)")
         log(f"jit n={n} slot {SLOT_CAPTURE_AT} traced: {prof['rounds']} "
             f"rounds, {prof['launches_per_slot']:.0f} kernel launches, "
-            f"{prof['copies_per_slot']:.0f} copies, device "
-            f"{prof['device_ms_per_slot']:.3f} ms in "
-            f"{prof['wall_ms_per_slot']:.3f} ms (busy "
-            f"{100 * prof['busy']:.1f}%)")
+            f"{prof['copies_per_slot']:.0f} copies, "
+            f"{prof['wall_ms_per_slot']:.3f} ms of wall time; device "
+            f"{device}; its kernels {prof['kernel_ms_per_slot']:.3f} ms "
+            "by CUDA events")
     del slot_args
     if card:
         free_cuda()
@@ -2462,6 +2651,8 @@ def run_slot_engine_paths(device=None) -> tuple[dict, list[dict]]:
     check(bool(res.reconstructable.all()) and not res.metrics.failed_open,
           "headline: not every update reconstructable")
     replay_legality(hcfg, res, check_tau=True)
+    if card:
+        check_slot_launches(launches, cnt, "headline")
     out["headline"] = _slot_line(f"headline n=100 K=64 on {dev}", res,
                                  host_s, ph, cnt, launches)
     t0 = time.perf_counter()
@@ -2490,6 +2681,7 @@ def run_slot_engine_paths(device=None) -> tuple[dict, list[dict]]:
         t0 = time.perf_counter()
         replay_legality(cfg, res, check_tau=True)
         legal_s = time.perf_counter() - t0
+        check_slot_launches(launches, cnt, f"jit n={n}")
         out[f"n{n}"] = _slot_line(f"n={n} K={SLOT_K} on {dev}", res, host_s,
                                   ph, cnt, launches)
         out[f"n{n}"]["legality_s"] = legal_s
@@ -3434,6 +3626,7 @@ def main() -> int:
         check_small_serving()
         check_small_mlstm()
         check_small_slots()
+        check_small_slot_rounds()
         train_counts = {arch: run_train_path(arch, d, steps, comp)
                         for arch, d, steps, comp in TRAIN_PATHS}
         serve_counts, served = run_serving_path()

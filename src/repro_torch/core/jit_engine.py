@@ -17,18 +17,21 @@ Contract (the JAX package's docs/INVARIANTS.md "jit-engine contract"):
   zero in both the supply and the need planes, so padding can never add
   a transfer.
 * **masked convergence**: every round updates all receivers under
-  boolean masks; the Python round loop stops the first round that finds
-  no feasible (receiver, sender) pair, which costs the round's one
-  device-to-host read.
+  boolean masks; the rounds stop at the first that finds no feasible
+  (receiver, sender) pair.
 * **schedule legality is engine-independent**: budgets, tau, adjacency,
   duplicate-freedom and the Eq. 1 gate hold as in the loop and batched
   engines.
 
-Where the JAX package stages one ``lax.while_loop``, the port runs the
-rounds as a Python loop of torch ops, with the plane work in three hand
-kernels (``kernels/slots.py``: ``slot_planes`` once a slot,
-``overlap_rank`` and ``extract_ranked`` once a round).  A slot makes one
-host read a round plus one for the grant grids (``COUNTS``).
+Where the JAX package stages one ``lax.while_loop``, the port runs a
+slot on the card as two hand kernels (``kernels/slots.py``):
+``slot_planes`` builds the planes, then ``slot_rounds`` runs every grant
+round in one persistent cooperative launch and leaves ``rounds`` and
+the grids on the device, so a slot makes two host reads (``rounds``,
+then the grids; ``COUNTS``).  Its sender phases walk each sender's
+in-neighbor list, cached on the state beside the neighbor lists.  On
+the CPU, or with ``impl="torch"``, the rounds run as the plain loop
+``slot_rounds_plain``: torch ops and one host read a round.
 
 Words are int32 tensors with the uint32 bit patterns of the JAX
 package's words.  The swarm-wide inventory lives on the device as a
@@ -57,14 +60,13 @@ from .. import resolve_device
 from ..kernels import slots as _k
 # the bitplane helpers keep the JAX package's names in this module too
 from ..kernels.slots import (_extract_ranked, _first_bits,  # noqa: F401
-                             _kth_set_bit, _mul32, _rank_counts, _u32)
+                             _kth_set_bit, _mix32, _mul32, _rank_counts,
+                             _salted, _u32)
 from .state import SwarmState
 
 _MODE_IDS = {"random_fifo": 0, "random_fastest_first": 1,
              "greedy_fastest_first": 2}
-_GFF_RETRIES = 3          # loser re-picks per round, as the batched engine
 _BIG = 1 << 30            # "unbounded" batch cap for the BT phase
-_U01 = 2.0 ** -32         # uint32 -> [0, 1)
 
 # Host-observed wall seconds per engine phase, accumulated across slots
 # ("matching" includes the noise draw and the blocking device-to-host
@@ -74,7 +76,8 @@ _U01 = 2.0 ** -32         # uint32 -> [0, 1)
 PHASE_S = {"bitplane_s": 0.0, "matching_s": 0.0, "extraction_s": 0.0}
 
 # Work counts accumulated across slots: slots matched, grant rounds run
-# and device-to-host reads (one a round, one for the grids).
+# and device-to-host reads (on the card: rounds and the grids, two a
+# slot; on the CPU's plain loop: one a round, plus the grids).
 COUNTS = {"slots": 0, "rounds": 0, "host_reads": 0}
 
 
@@ -149,12 +152,31 @@ def _upload(a: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(a).to(dev)
 
 
-def _neighbor_lists(state: SwarmState) -> torch.Tensor:
-    """Padded (n, d_pad) int32 neighbor lists (-1 pad) for the round's
-    static overlay, device-cached so every slot reuses one upload."""
+def _transpose_lists(nbr: np.ndarray) -> np.ndarray:
+    """Padded (n, din_pad) int32 in-neighbor lists (-1 pad) of padded
+    neighbor lists: row u lists, ascending, every v with u in nbr[v].
+    No symmetry is assumed."""
+    n = nbr.shape[0]
+    v, d = np.nonzero(nbr >= 0)
+    u = nbr[v, d].astype(np.int64)
+    order = np.lexsort((v, u))
+    u, v = u[order], v[order]
+    deg = np.bincount(u, minlength=n)
+    din_pad = _pow2(max(int(deg.max(initial=1)), 1))
+    out = np.full((n, din_pad), -1, dtype=np.int32)
+    first = np.searchsorted(u, np.arange(n))
+    out[u, np.arange(u.size) - first[u]] = v
+    return out
+
+
+def _overlay_lists(state: SwarmState):
+    """Device (nbr, in_nbr) lists of the state's overlay: padded (n,
+    d_pad) neighbor lists and their (n, din_pad) transpose (-1 pad),
+    cached on the state so every slot reuses one upload, and rebuilt
+    when ``state.adj`` is replaced."""
     cached = getattr(state, "_jit_nbr_cache", None)
-    if cached is not None:
-        return cached
+    if cached is not None and cached[0] is state.adj:
+        return cached[1], cached[2]
     adj = state.adj
     n = adj.shape[0]
     deg = adj.sum(axis=1)
@@ -163,9 +185,16 @@ def _neighbor_lists(state: SwarmState) -> torch.Tensor:
     rows, cols = np.nonzero(adj)
     first = np.searchsorted(rows, np.arange(n))
     nbr[rows, np.arange(rows.size) - first[rows]] = cols
-    dev = _upload(nbr, _device(state))
-    state._jit_nbr_cache = dev
-    return dev
+    dev = _device(state)
+    cached = (adj, _upload(nbr, dev), _upload(_transpose_lists(nbr), dev))
+    state._jit_nbr_cache = cached
+    return cached[1], cached[2]
+
+
+def _neighbor_lists(state: SwarmState) -> torch.Tensor:
+    """Padded (n, d_pad) int32 neighbor lists (-1 pad) for the round's
+    static overlay, on the engine's device (``_overlay_lists``)."""
+    return _overlay_lists(state)[0]
 
 
 def _scatter_bits(words: torch.Tensor, rows, wcol, vals) -> torch.Tensor:
@@ -257,25 +286,6 @@ def _sync_have_dev(state: SwarmState) -> torch.Tensor:
 # Device side
 # ----------------------------------------------------------------------
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """32-bit finalizer hash of each word's uint32 value: one fresh
-    tie-break lattice per round and retry from a single per-slot base.
-    Returns the uint32 results held in int64."""
-    x = _u32(x)
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    x = x ^ (x >> 16)
-    return x
-
-
-def _salted(base: torch.Tensor, salt: int) -> torch.Tensor:
-    """uint32 ``base ^ salt`` hashed to floats in [0, 1), as the JAX
-    package's ``mix32(...).astype(f32) * 2**-32``."""
-    return _mix32(base ^ (salt & 0xFFFFFFFF)).to(torch.float32) * _U01
-
-
 def _draw_bases(seed: int, n: int, d_pad: int):
     """The slot's noise, tie and priority bases: (n, d_pad), (n,) and
     (n,) int32 words from a CPU ``torch.Generator`` seeded with the
@@ -293,18 +303,20 @@ def _draw_bases(seed: int, n: int, d_pad: int):
 def _slot_rounds(mode_id: int, nonowner: bool, ungated: bool,
                  t_cap: int, r_max: int, have_dev, cand, owner_row,
                  own_allowed, m_cnt: int, recv_ok, nbr, rem_up, rem_down,
-                 batch_cap: int, tau: int, bases):
+                 batch_cap: int, tau: int, bases, in_nbr, *,
+                 impl: str = "cuda"):
     """One slot: plane build plus budgeted-round matching.
 
     Stage 1 (``slot_planes``) gathers the candidate columns out of the
     device-resident packed inventory in rarest-first bit order and
-    applies the owner-window gate.  Stage 2 loops over grant rounds,
-    carrying the need planes, the remaining uplink/downlink and tau
-    budgets, the serving and tombstone pair masks and the fixed-shape
-    output grids; every round is fully masked.  ``bases`` are the
-    (noise (n, d_pad), tie (n,), prio (n,)) int32 words that the JAX
-    package draws from ``seed`` inside its kernel.  The plane kernels
-    run on CUDA tensors, their plain versions on CPU ones.
+    applies the owner-window gate.  Stage 2 (``slot_rounds``) runs the
+    grant rounds, carrying the need planes, the remaining uplink/downlink
+    and tau budgets, the serving and tombstone pair masks and the
+    fixed-shape output grids; every round is fully masked.  ``bases``
+    are the (noise (n, d_pad), tie (n,), prio (n,)) int32 words that the
+    JAX package draws from ``seed`` inside its kernel; ``in_nbr`` is the
+    transpose of ``nbr`` (``_overlay_lists``).  The kernels run on CUDA
+    tensors, their plain versions on CPU ones or with ``impl="torch"``.
 
     Returns ``(out_snd, out_col, rounds)``: per (round, receiver) the
     granted sender (-1 none) and its rarest-first column batch (-1 pad),
@@ -312,137 +324,18 @@ def _slot_rounds(mode_id: int, nonowner: bool, ungated: bool,
     n, t_cap) int32 grids on the device (rows past ``rounds`` are -1),
     and how many rounds ran.
     """
-    n = have_dev.shape[0]
     dev = have_dev.device
-    i32 = dict(dtype=torch.int32, device=dev)
+    plain = impl == "torch" or dev.type == "cpu"
     plane_a, plane_b, need, need_cnt, sup_any = _k.slot_planes(
         have_dev, cand, owner_row, own_allowed, recv_ok, m_cnt,
-        nonowner=nonowner, ungated=ungated)
-    nbrc = nbr.clamp(min=0).long()
-    valid_nbr = nbr >= 0
-    live = valid_nbr & sup_any[nbrc]
-    noise_base, tie_base, prio_base = (_u32(b.to(dev)) for b in bases)
-    vidx = torch.arange(n, device=dev)
-    rem_up = rem_up.to(torch.int32).clone()
-    rem_down = rem_down.to(torch.int32).clone()
-    recv_slots = torch.full((n,), tau, **i32)
-    serving = torch.zeros_like(live)
-    out_snd = torch.full((r_max, n), -1, **i32)
-    out_col = torch.full((r_max, n, t_cap), -1, **i32)
-    neg_inf = float("-inf")
-    rounds = 0
-    while rounds < r_max:
-        r = rounds
-        rounds += 1
-        needy = (rem_down > 0) & (need_cnt > 0)
-        feas = (live & valid_nbr & needy[:, None]
-                & (rem_up[nbrc] > 0)
-                & ((recv_slots[nbrc] > 0) | serving))
-        noise = _salted(noise_base, r * 0x9E3779B9)
-        if mode_id == 2:                 # GFF: fastest remaining uplink
-            score = rem_up[nbrc].to(torch.float32) + noise
-        else:
-            score = noise
-        score = torch.where(feas, score, neg_inf)
-
-        if mode_id == 2:
-            # One receiver per sender; losers re-pick among untaken
-            # senders (the batched engine's masked retry loop).
-            d_sel = torch.argmax(score, dim=1)
-            act = feas.gather(1, d_sel[:, None])[:, 0]
-            pair = torch.zeros(n, dtype=torch.bool, device=dev)
-            d_v = torch.zeros(n, dtype=torch.int64, device=dev)
-            taken = torch.zeros(n, **i32)
-            for it in range(_GFF_RETRIES):
-                salt = (it * 0xC2B2AE35) & 0xFFFFFFFF
-                tie = _salted(tie_base, r * 0x85EBCA6B + salt)
-                tie = torch.where(act, tie, -1.0)
-                u_sel = nbrc[vidx, d_sel]
-                wkey = torch.full((n,), -2.0, device=dev).scatter_reduce(
-                    0, u_sel, tie, "amax", include_self=True)
-                win = act & (tie >= 0.0) & (tie == wkey[u_sel])
-                pair = pair | win
-                d_v = torch.where(win, d_sel, d_v)
-                taken = taken.scatter_reduce(0, u_sel, win.to(torch.int32),
-                                             "amax", include_self=True)
-                score = torch.where(taken[nbrc] > 0, neg_inf, score)
-                act = act & ~win
-                d_sel = torch.argmax(score, dim=1)
-                best = score.gather(1, d_sel[:, None])[:, 0]
-                act = act & torch.isfinite(best)
-        else:
-            # Sender multi-serve: every receiver keeps its chosen
-            # sender; the grouped split below divides each uplink.
-            d_v = torch.argmax(score, dim=1)
-            best = score.gather(1, d_v[:, None])[:, 0]
-            pair = torch.isfinite(best)
-
-        u_v = torch.where(pair, nbrc[vidx, d_v], n)    # n = no pair
-        u_c = u_v.clamp(max=n - 1)
-        # Unpaired rows count garbage (clamped sender n-1); every
-        # consumer below is masked on pair/take.
-        sbc, cnt_b = _k.overlap_rank(plane_a, plane_b, need, u_c)
-        cnt_a = torch.where(pair, sbc[:, -1], 0)
-        cnt = cnt_a + torch.where(pair, cnt_b, 0)
-        dead = pair & (cnt == 0)                      # tombstone
-        live[vidx, d_v] = live[vidx, d_v] & ~dead
-
-        req = torch.minimum(rem_down, cnt).clamp_(max=batch_cap)
-        req = torch.where(pair, req, 0)
-        # Mode-priority order within each sender group: fastest
-        # downlink first for RFF, random arrival otherwise.
-        pn = _salted(prio_base, r * 0x27D4EB2F)
-        if mode_id == 1:
-            recv_prio = -(rem_down.to(torch.float32) + pn)
-        else:
-            recv_prio = pn
-        # lexsort((recv_prio, u_v)): two stable sorts; + 0.0 makes a
-        # -0.0 priority +0.0, which the JAX comparator treats as equal
-        order = torch.sort(recv_prio + 0.0, stable=True).indices
-        order = order[torch.sort(u_v[order], stable=True).indices]
-        us = u_v[order]
-        us_c = us.clamp(max=n - 1)
-        reqs = req[order].long()
-        is_new = pair & ~serving[vidx, d_v]
-        isn = is_new[order].long()
-        first = torch.searchsorted(us, us)
-        # tau gate: only the first recv_slots[u] NEW pairs of each
-        # sender group may open a serve slot this round.
-        cn = torch.cumsum(isn, 0)
-        excl_new = cn - isn
-        new_rank = excl_new - excl_new[first]
-        reqs = torch.where((us < n) & ((isn == 0)
-                                       | (new_rank < recv_slots[us_c])),
-                           reqs, 0)
-        # uplink split: grouped exclusive cumsum of requests caps each
-        # pair at what its sender has left after earlier pairs.
-        cq = torch.cumsum(reqs, 0)
-        excl = cq - reqs
-        take_s = torch.minimum(reqs, (rem_up[us_c]
-                                      - (excl - excl[first])).clamp(min=0))
-        take = torch.zeros(n, **i32)
-        take[order] = take_s.to(torch.int32)
-        granted = take > 0
-
-        # Non-owner-first WITHIN each grant: fill from the non-owner
-        # overlap, owner chunks only for the remainder (both tiers in
-        # one extraction, so no host read decides whether to run the
-        # owner tier).
-        t_a = torch.minimum(take, cnt_a) if plane_b is not None else take
-        cols = _k.extract_ranked(plane_a, plane_b, need, u_c, take, t_a,
-                                 sbc, t_cap)
-
-        need_cnt = need_cnt - take
-        rem_down = rem_down - take
-        rem_up.index_add_(0, u_c, torch.where(granted, -take, 0))
-        fresh = granted & is_new
-        serving[vidx, d_v] = serving[vidx, d_v] | fresh
-        recv_slots.index_add_(0, u_c, -fresh.to(torch.int32))
-        out_snd[r] = torch.where(granted, u_v.to(torch.int32), -1)
-        out_col[r] = cols
-        COUNTS["host_reads"] += 1
-        if not bool(pair.any()):
-            break
+        nonowner=nonowner, ungated=ungated, impl=impl)
+    out_snd, out_col, rounds = _k.slot_rounds(
+        plane_a, plane_b, need, need_cnt, sup_any, nbr, in_nbr,
+        rem_up.to(torch.int32), rem_down.to(torch.int32),
+        tuple(b.to(dev) for b in bases), mode_id=mode_id, t_cap=t_cap,
+        r_max=r_max, batch_cap=batch_cap, tau=tau, impl=impl)
+    rounds = int(rounds)
+    COUNTS["host_reads"] += rounds if plain else 1
     COUNTS["rounds"] += rounds
     return out_snd, out_col, rounds
 
@@ -512,7 +405,7 @@ def schedule_centralized_jit(state: SwarmState, mode: str):
 
     _t0 = _clock()
     have_dev = _sync_have_dev(state)
-    nbr_dev = _neighbor_lists(state)
+    nbr_dev, in_dev = _overlay_lists(state)
     _t1 = _clock()
     dev = have_dev.device
     bases = _draw_bases(seed, n, nbr_dev.shape[1])
@@ -521,7 +414,7 @@ def schedule_centralized_jit(state: SwarmState, mode: str):
         _upload(cand_p, dev), _upload(owner_p, dev),
         _upload(allowed_p, dev), m, _upload(recv_ok, dev), nbr_dev,
         _upload(rem_up, dev), _upload(rem_down, dev),
-        min(batch_cap, _BIG), int(cfg.tau_concurrent), bases)
+        min(batch_cap, _BIG), int(cfg.tau_concurrent), bases, in_dev)
     # One read for both grids, of the rounds that ran.
     grids = torch.cat([out_snd[:rounds, :, None], out_col[:rounds]],
                       dim=2).cpu().numpy()

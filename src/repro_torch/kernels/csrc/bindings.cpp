@@ -284,6 +284,85 @@ void extract_ranked(const at::Tensor& plane_a, const at::Tensor& plane_b,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+repro_torch::SlotRoundsIo slot_rounds_io(
+    const at::Tensor& plane_a, const at::Tensor& plane_b, bool has_b,
+    const at::Tensor& need, const at::Tensor& need_cnt,
+    const at::Tensor& sup_any, const at::Tensor& nbr,
+    const at::Tensor& in_nbr, const at::Tensor& rem_up,
+    const at::Tensor& rem_down, const at::Tensor& noise_base,
+    const at::Tensor& tie_base, const at::Tensor& prio_base, int64_t mode,
+    int64_t batch_cap, int64_t tau, const at::Tensor& out_snd,
+    const at::Tensor& out_col, const at::Tensor& rounds) {
+  auto words = [](const at::Tensor& t) {
+    return reinterpret_cast<const uint32_t*>(t.data_ptr<int32_t>());
+  };
+  repro_torch::SlotRoundsIo io{};
+  io.plane_a = words(plane_a);
+  io.plane_b = has_b ? words(plane_b) : io.plane_a;
+  io.need = words(need);
+  io.need_cnt = need_cnt.data_ptr<int32_t>();
+  io.sup_any = sup_any.data_ptr<bool>();
+  io.nbr = nbr.data_ptr<int32_t>();
+  io.in_nbr = in_nbr.data_ptr<int32_t>();
+  io.rem_up = rem_up.data_ptr<int32_t>();
+  io.rem_down = rem_down.data_ptr<int32_t>();
+  io.noise_base = words(noise_base);
+  io.tie_base = words(tie_base);
+  io.prio_base = words(prio_base);
+  io.out_snd = out_snd.data_ptr<int32_t>();
+  io.out_col = out_col.data_ptr<int32_t>();
+  io.rounds = rounds.data_ptr<int32_t>();
+  io.n = need.size(0);
+  io.w_words = need.size(1);
+  io.d_pad = nbr.size(1);
+  io.din_pad = in_nbr.size(1);
+  io.t_cap = out_col.size(2);
+  io.has_b = has_b ? 1 : 0;
+  io.mode = static_cast<int>(mode);
+  io.r_max = static_cast<int>(out_snd.size(0));
+  io.batch_cap = static_cast<int>(batch_cap);
+  io.tau = static_cast<int>(tau);
+  return io;
+}
+
+void slot_rounds(const at::Tensor& plane_a, const at::Tensor& plane_b,
+                 bool has_b, const at::Tensor& need,
+                 const at::Tensor& need_cnt, const at::Tensor& sup_any,
+                 const at::Tensor& nbr, const at::Tensor& in_nbr,
+                 const at::Tensor& rem_up, const at::Tensor& rem_down,
+                 const at::Tensor& noise_base, const at::Tensor& tie_base,
+                 const at::Tensor& prio_base, int64_t mode, int64_t batch_cap,
+                 int64_t tau, const at::Tensor& out_snd,
+                 const at::Tensor& out_col, const at::Tensor& rounds,
+                 const at::Tensor& scratch) {
+  const c10::cuda::CUDAGuard guard(need.device());
+  check_launch(repro_torch::launch_slot_rounds(
+                   slot_rounds_io(plane_a, plane_b, has_b, need, need_cnt,
+                                  sup_any, nbr, in_nbr, rem_up, rem_down,
+                                  noise_base, tie_base, prio_base, mode,
+                                  batch_cap, tau, out_snd, out_col, rounds),
+                   scratch.data_ptr<int32_t>(),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "slot_rounds");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+int64_t slot_rounds_scratch_words(int64_t n, int64_t w_words, int64_t d_pad,
+                                  int64_t r_max, int64_t mode) {
+  repro_torch::SlotRoundsIo io{};
+  io.n = n;
+  io.w_words = w_words;
+  io.d_pad = d_pad;
+  io.r_max = static_cast<int>(r_max);
+  io.mode = static_cast<int>(mode);
+  return repro_torch::slot_rounds_scratch_words(io);
+}
+
+int64_t slot_rounds_grid(const at::Tensor& like, int64_t n) {
+  const c10::cuda::CUDAGuard guard(like.device());
+  return repro_torch::slot_rounds_grid(n);
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -333,4 +412,14 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("extract_ranked", &extract_ranked,
         "Per-round ranked extraction (plane_a, plane_b, has_b, need, u_c, "
         "take, t_a, sbc, cols); clears the picks from need");
+  m.def("slot_rounds", &slot_rounds,
+        "Every grant round of a slot, one cooperative launch (plane_a, "
+        "plane_b, has_b, need, need_cnt, sup_any, nbr, in_nbr, rem_up, "
+        "rem_down, noise_base, tie_base, prio_base, mode, batch_cap, tau, "
+        "out_snd, out_col, rounds, scratch)");
+  m.def("slot_rounds_scratch_words", &slot_rounds_scratch_words,
+        "int32 scratch words of slot_rounds (n, w_words, d_pad, r_max, "
+        "mode)");
+  m.def("slot_rounds_grid", &slot_rounds_grid,
+        "CTAs of a slot_rounds launch on `like`'s device (like, n)");
 }

@@ -139,8 +139,10 @@ cudaError_t launch_mlstm_chunkwise_tc(
 
 // The GPU slot engine's bitplane kernels (slots.cu).  Words are the
 // uint32 bit patterns of int32 tensors; planes are (n, W) contiguous,
-// W = m_pad / 32, and u_c (n,) int64 indexes their rows.  Each returns
-// the error of its launch (cudaGetLastError).
+// W = m_pad / 32, and u_c (n,) int64 indexes their rows.  Each of the
+// first three returns the error of its launch (cudaGetLastError); a
+// slot runs slot_planes and then slot_rounds, and overlap_rank and
+// extract_ranked run alone the row bodies slot_rounds runs a round.
 //   launch_slot_planes: have (n, w_full); cand, owner (m_pad,) int32;
 //     allowed (m_pad,), recv_ok (n,) bool.  Writes plane_a (and, when
 //     nonowner, plane_b), need, need_cnt (n,) int32 and sup_any (n,).
@@ -172,5 +174,43 @@ cudaError_t launch_extract_ranked(const int32_t* plane_a,
                                   const int32_t* sbc, int64_t n,
                                   int64_t w_words, int64_t t_cap,
                                   int32_t* cols, cudaStream_t stream);
+
+// launch_slot_rounds: every grant round of a slot in one cooperative
+// launch.  Reads the planes of launch_slot_planes (plane_b == plane_a
+// when !has_b), need_cnt and sup_any; nbr (n, d_pad) and in_nbr (n,
+// din_pad) int32 neighbor lists, -1 pad (in_nbr[u] lists the rows v with
+// u in nbr[v]); rem_up, rem_down (n,) int32; the noise (n, d_pad), tie
+// and prio (n,) bases.  mode 0 random FIFO, 1 random fastest first, 2
+// greedy fastest first.  Writes out_snd (r_max, n), out_col (r_max, n,
+// t_cap) int32 and rounds (1,) int32, and changes none of its inputs.
+// `scratch` holds slot_rounds_scratch_words(io) int32 words (from n,
+// w_words, d_pad, r_max and mode), 16-byte
+// aligned; the launcher zeroes its head on the stream first.  Returns
+// cudaErrorNotSupported where the device has no cooperative launch, else
+// the error of the occupancy query, the memset or the launch.
+// slot_rounds_grid(n) is the CTA count of a launch (-1 on error).
+struct SlotRoundsIo {
+  const uint32_t* plane_a;
+  const uint32_t* plane_b;
+  const uint32_t* need;
+  const int32_t* need_cnt;
+  const bool* sup_any;
+  const int32_t* nbr;
+  const int32_t* in_nbr;
+  const int32_t* rem_up;
+  const int32_t* rem_down;
+  const uint32_t* noise_base;
+  const uint32_t* tie_base;
+  const uint32_t* prio_base;
+  int32_t* out_snd;
+  int32_t* out_col;
+  int32_t* rounds;
+  int64_t n, w_words, d_pad, din_pad, t_cap;
+  int has_b, mode, r_max, batch_cap, tau;
+};
+int64_t slot_rounds_scratch_words(const SlotRoundsIo& io);
+int slot_rounds_grid(int64_t n);
+cudaError_t launch_slot_rounds(const SlotRoundsIo& io, int32_t* scratch,
+                               cudaStream_t stream);
 
 }  // namespace repro_torch

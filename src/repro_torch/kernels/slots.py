@@ -1,11 +1,10 @@
 """Bitplane kernels of the GPU slot engine (``core/jit_engine.py``).
 
-The JAX package computes a slot's plane work as plain ``lax`` code over
-packed uint32 words (``repro/core/jit_engine.py::_slot_rounds``): no
-TPU kernel is behind any of it.  torch has no popcount op, so the
-plain versions here spend a dozen SWAR operations on every popcount,
-and the plane work of a slot goes to three hand kernels in
-``csrc/slots.cu`` instead:
+The JAX package computes a slot as plain ``lax`` code over packed
+uint32 words (``repro/core/jit_engine.py::_slot_rounds``): no TPU kernel
+is behind any of it.  torch has no popcount op, so the plain versions
+here spend a dozen SWAR operations on every popcount, and a slot goes
+to two hand kernels in ``csrc/slots.cu`` instead:
 
 * ``slot_planes``    — stage 1: gather the candidate columns out of the
                        packed inventory in rarest-first bit order,
@@ -13,13 +12,24 @@ and the plane work of a slot goes to three hand kernels in
                        supply tier planes, the need plane, the need
                        counts and ``sup_any``, without the (n, m_pad)
                        bit matrix the JAX code materialises;
-* ``overlap_rank``   — per grant round: the fused gather, AND and
-                       popcount of ``plane_a[u_c] & need`` into its
-                       (n, S) superblock cumsum, and the owner tier's
-                       totals (``_rank_counts`` of the JAX code);
-* ``extract_ranked`` — per grant round: the first ``take`` set bits of
-                       ``plane_a[u_c] & need`` (``t_a`` of them) and then
-                       of ``plane_b[u_c] & need``, as column ids, cleared
+* ``slot_rounds``    — every grant round of the slot in one persistent
+                       cooperative launch (the JAX package's
+                       ``lax.while_loop``): feasibility, scores, GFF
+                       retries, overlap counts, the grouped tau gate and
+                       uplink split, and the ranked extraction, with
+                       ``rounds`` and the two grids left on the device.
+
+``overlap_rank`` and ``extract_ranked`` run two of ``slot_rounds``' row
+bodies alone, one CTA a row, so they can be held against their plain
+versions on their own:
+
+* ``overlap_rank``   — the fused gather, AND and popcount of
+                       ``plane_a[u_c] & need`` into its (n, S)
+                       superblock cumsum, and the owner tier's totals
+                       (``_rank_counts`` of the JAX code);
+* ``extract_ranked`` — the first ``take`` set bits of ``plane_a[u_c] &
+                       need`` (``t_a`` of them) and then of
+                       ``plane_b[u_c] & need``, as column ids, cleared
                        from ``need`` in place (``_extract_ranked`` and
                        ``_first_bits`` with the tier merge).
 
@@ -245,6 +255,192 @@ def extract_ranked_plain(plane_a, plane_b, need, u_c, take, t_a, sbc,
     return cols
 
 
+_GFF_RETRIES = 3          # loser re-picks per round, as the batched engine
+_U01 = 2.0 ** -32         # uint32 -> [0, 1)
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """32-bit finalizer hash of each word's uint32 value: one fresh
+    tie-break lattice per round and retry from a single per-slot base.
+    Returns the uint32 results held in int64."""
+    x = _u32(x)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x
+
+
+def _salted(base: torch.Tensor, salt: int) -> torch.Tensor:
+    """uint32 ``base ^ salt`` hashed to floats in [0, 1), as the JAX
+    package's ``mix32(...).astype(f32) * 2**-32``."""
+    return _mix32(base ^ (salt & 0xFFFFFFFF)).to(torch.float32) * _U01
+
+
+def grouped_take(u_v, req, recv_prio, is_new, recv_slots, rem_up, n: int):
+    """A round's grants (n,) int32 from its pairs, by one global sort.
+
+    Receivers pair with ``u_v`` (n when unpaired) and ask for ``req``.
+    Within each sender's group, in ascending ``(recv_prio + 0.0, v)``
+    order, only the first ``recv_slots[u]`` NEW pairs (``is_new``) may
+    open a serve slot (the tau gate), and each grant is capped at what
+    ``rem_up[u]`` leaves after the members before it (the uplink split).
+    """
+    # lexsort((recv_prio, u_v)): two stable sorts; + 0.0 makes a
+    # -0.0 priority +0.0, which the JAX comparator treats as equal
+    order = torch.sort(recv_prio + 0.0, stable=True).indices
+    order = order[torch.sort(u_v[order], stable=True).indices]
+    us = u_v[order]
+    us_c = us.clamp(max=n - 1)
+    reqs = req[order].long()
+    isn = is_new[order].long()
+    first = torch.searchsorted(us, us)
+    # tau gate: only the first recv_slots[u] NEW pairs of each
+    # sender group may open a serve slot this round.
+    cn = torch.cumsum(isn, 0)
+    excl_new = cn - isn
+    new_rank = excl_new - excl_new[first]
+    reqs = torch.where((us < n) & ((isn == 0)
+                                   | (new_rank < recv_slots[us_c])),
+                       reqs, 0)
+    # uplink split: grouped exclusive cumsum of requests caps each
+    # pair at what its sender has left after earlier pairs.
+    cq = torch.cumsum(reqs, 0)
+    excl = cq - reqs
+    take_s = torch.minimum(reqs, (rem_up[us_c]
+                                  - (excl - excl[first])).clamp(min=0))
+    take = torch.zeros(n, dtype=torch.int32, device=u_v.device)
+    take[order] = take_s.to(torch.int32)
+    return take
+
+
+def slot_rounds_plain(plane_a, plane_b, need, need_cnt, sup_any, nbr,
+                      rem_up, rem_down, bases, *, mode_id: int, t_cap: int,
+                      r_max: int, batch_cap: int, tau: int):
+    """Every grant round of a slot as the JAX package's loop body, one
+    Python iteration a round with one host read (``pair.any()``).
+
+    The planes, ``need_cnt`` and ``sup_any`` are ``slot_planes``'
+    outputs; nbr (n, d_pad) int32 neighbor lists, -1 pad; rem_up and
+    rem_down (n,) int32 budgets; ``bases`` the (noise (n, d_pad), tie
+    (n,), prio (n,)) int32 words.  Carries the need plane, the remaining
+    uplink/downlink and tau budgets, the serving and tombstone pair masks
+    and the fixed-shape output grids; every round is fully masked; no
+    argument is changed.  Returns ``(out_snd, out_col, rounds)``: per
+    (round, receiver) the granted sender (-1 none) and its rarest-first
+    column batch (-1 pad), non-owner tier first within each grant, as
+    (r_max, n) and (r_max, n, t_cap) int32 grids (rows past ``rounds``
+    are -1), and how many rounds ran, as a (1,) int32 tensor.
+    """
+    n = need.shape[0]
+    dev = need.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    need = need.clone()
+    nbrc = nbr.clamp(min=0).long()
+    valid_nbr = nbr >= 0
+    live = valid_nbr & sup_any[nbrc]
+    noise_base, tie_base, prio_base = (_u32(b.to(dev)) for b in bases)
+    vidx = torch.arange(n, device=dev)
+    rem_up = rem_up.to(torch.int32).clone()
+    rem_down = rem_down.to(torch.int32).clone()
+    recv_slots = torch.full((n,), tau, **i32)
+    serving = torch.zeros_like(live)
+    out_snd = torch.full((r_max, n), -1, **i32)
+    out_col = torch.full((r_max, n, t_cap), -1, **i32)
+    neg_inf = float("-inf")
+    rounds = 0
+    while rounds < r_max:
+        r = rounds
+        rounds += 1
+        needy = (rem_down > 0) & (need_cnt > 0)
+        feas = (live & valid_nbr & needy[:, None]
+                & (rem_up[nbrc] > 0)
+                & ((recv_slots[nbrc] > 0) | serving))
+        noise = _salted(noise_base, r * 0x9E3779B9)
+        if mode_id == 2:                 # GFF: fastest remaining uplink
+            score = rem_up[nbrc].to(torch.float32) + noise
+        else:
+            score = noise
+        score = torch.where(feas, score, neg_inf)
+
+        if mode_id == 2:
+            # One receiver per sender; losers re-pick among untaken
+            # senders (the batched engine's masked retry loop).
+            d_sel = torch.argmax(score, dim=1)
+            act = feas.gather(1, d_sel[:, None])[:, 0]
+            pair = torch.zeros(n, dtype=torch.bool, device=dev)
+            d_v = torch.zeros(n, dtype=torch.int64, device=dev)
+            taken = torch.zeros(n, **i32)
+            for it in range(_GFF_RETRIES):
+                salt = (it * 0xC2B2AE35) & 0xFFFFFFFF
+                tie = _salted(tie_base, r * 0x85EBCA6B + salt)
+                tie = torch.where(act, tie, -1.0)
+                u_sel = nbrc[vidx, d_sel]
+                wkey = torch.full((n,), -2.0, device=dev).scatter_reduce(
+                    0, u_sel, tie, "amax", include_self=True)
+                win = act & (tie >= 0.0) & (tie == wkey[u_sel])
+                pair = pair | win
+                d_v = torch.where(win, d_sel, d_v)
+                taken = taken.scatter_reduce(0, u_sel, win.to(torch.int32),
+                                             "amax", include_self=True)
+                score = torch.where(taken[nbrc] > 0, neg_inf, score)
+                act = act & ~win
+                d_sel = torch.argmax(score, dim=1)
+                best = score.gather(1, d_sel[:, None])[:, 0]
+                act = act & torch.isfinite(best)
+        else:
+            # Sender multi-serve: every receiver keeps its chosen
+            # sender; the grouped split below divides each uplink.
+            d_v = torch.argmax(score, dim=1)
+            best = score.gather(1, d_v[:, None])[:, 0]
+            pair = torch.isfinite(best)
+
+        u_v = torch.where(pair, nbrc[vidx, d_v], n)    # n = no pair
+        u_c = u_v.clamp(max=n - 1)
+        # Unpaired rows count garbage (clamped sender n-1); every
+        # consumer below is masked on pair/take.
+        sbc, cnt_b = overlap_rank_plain(plane_a, plane_b, need, u_c)
+        cnt_a = torch.where(pair, sbc[:, -1], 0)
+        cnt = cnt_a + torch.where(pair, cnt_b, 0)
+        dead = pair & (cnt == 0)                      # tombstone
+        live[vidx, d_v] = live[vidx, d_v] & ~dead
+
+        req = torch.minimum(rem_down, cnt).clamp_(max=batch_cap)
+        req = torch.where(pair, req, 0)
+        # Mode-priority order within each sender group: fastest
+        # downlink first for RFF, random arrival otherwise.
+        pn = _salted(prio_base, r * 0x27D4EB2F)
+        if mode_id == 1:
+            recv_prio = -(rem_down.to(torch.float32) + pn)
+        else:
+            recv_prio = pn
+        is_new = pair & ~serving[vidx, d_v]
+        take = grouped_take(u_v, req, recv_prio, is_new, recv_slots, rem_up,
+                            n)
+        granted = take > 0
+
+        # Non-owner-first WITHIN each grant: fill from the non-owner
+        # overlap, owner chunks only for the remainder (both tiers in
+        # one extraction, so no host read decides whether to run the
+        # owner tier).
+        t_a = torch.minimum(take, cnt_a) if plane_b is not None else take
+        cols = extract_ranked_plain(plane_a, plane_b, need, u_c, take, t_a,
+                                    sbc, t_cap)
+
+        need_cnt = need_cnt - take
+        rem_down = rem_down - take
+        rem_up.index_add_(0, u_c, torch.where(granted, -take, 0))
+        fresh = granted & is_new
+        serving[vidx, d_v] = serving[vidx, d_v] | fresh
+        recv_slots.index_add_(0, u_c, -fresh.to(torch.int32))
+        out_snd[r] = torch.where(granted, u_v.to(torch.int32), -1)
+        out_col[r] = cols
+        if not bool(pair.any()):
+            break
+    return out_snd, out_col, torch.tensor([rounds], **i32)
+
+
 # ----------------------------------------------------------------------
 # CUDA wrappers
 # ----------------------------------------------------------------------
@@ -352,5 +548,64 @@ def extract_ranked(plane_a, plane_b, need, u_c, take, t_a, sbc,
     return cols
 
 
+def slot_rounds(plane_a, plane_b, need, need_cnt, sup_any, nbr, in_nbr,
+                rem_up, rem_down, bases, *, mode_id: int, t_cap: int,
+                r_max: int, batch_cap: int, tau: int, impl: str = "cuda"):
+    """:func:`slot_rounds_plain` through the ``slot_rounds`` kernel.
+
+    ``in_nbr`` (n, din_pad) int32 lists, for each sender u, the rows v
+    with u in ``nbr[v]`` (-1 pad); the kernel's sender phases walk it,
+    and the plain version does not read it.  Both leave ``rounds`` on
+    the device as a (1,) int32 tensor.  Raises where the device has no
+    cooperative launch.
+    """
+    kw = dict(mode_id=mode_id, t_cap=t_cap, r_max=r_max,
+              batch_cap=batch_cap, tau=tau)
+    if impl == "torch" or need.device.type == "cpu":
+        return slot_rounds_plain(plane_a, plane_b, need, need_cnt, sup_any,
+                                 nbr, rem_up, rem_down, bases, **kw)
+    if impl != "cuda":
+        raise ValueError(f"unknown slot_rounds impl {impl!r}")
+    noise, tie, prio = bases
+    planes = {"plane_a": plane_a, "need": need}
+    if plane_b is not None:
+        planes["plane_b"] = plane_b
+    ints = {"need_cnt": need_cnt, "nbr": nbr, "in_nbr": in_nbr,
+            "rem_up": rem_up, "rem_down": rem_down, "noise": noise,
+            "tie": tie, "prio": prio}
+    _build.require_cuda("slot_rounds", sup_any, *planes.values(),
+                        *ints.values())
+    _check("slot_rounds", {**planes, **ints}, torch.int32)
+    _check("slot_rounds", {"sup_any": sup_any}, torch.bool)
+    n, w_words = need.shape
+    d_pad = nbr.shape[1] if nbr.dim() == 2 else -1
+    if (any(t.shape != need.shape for t in planes.values())
+            or nbr.shape != (n, d_pad) or noise.shape != (n, d_pad)
+            or in_nbr.dim() != 2 or in_nbr.shape[0] != n
+            or any(t.shape != (n,) for t in (need_cnt, sup_any, rem_up,
+                                              rem_down, tie, prio))
+            or mode_id not in (0, 1, 2) or t_cap < 1 or r_max < 1):
+        raise ValueError("slot_rounds: want planes (n, W), nbr and the "
+                         "noise base (n, d_pad), in_nbr (n, din_pad), "
+                         "need_cnt, sup_any, rem_up, rem_down and the tie "
+                         "and prio bases (n,), mode_id 0, 1 or 2, t_cap "
+                         "and r_max >= 1")
+    ext = _build.extension()
+    kw_dev = dict(dtype=torch.int32, device=need.device)
+    scratch = torch.empty(ext.slot_rounds_scratch_words(
+        n, w_words, d_pad, r_max, mode_id), **kw_dev)
+    out_snd = torch.empty((r_max, n), **kw_dev)
+    out_col = torch.empty((r_max, n, t_cap), **kw_dev)
+    rounds = torch.empty((1,), **kw_dev)
+    ext.slot_rounds(plane_a, plane_a if plane_b is None else plane_b,
+                    plane_b is not None, need, need_cnt, sup_any, nbr,
+                    in_nbr, rem_up, rem_down, noise, tie, prio, mode_id,
+                    min(batch_cap, 2 ** 31 - 1), tau, out_snd, out_col,
+                    rounds, scratch)
+    _build.LAUNCHES["slot_rounds"] += 1
+    return out_snd, out_col, rounds
+
+
 __all__ = ["popcount", "slot_planes", "slot_planes_plain", "overlap_rank",
-           "overlap_rank_plain", "extract_ranked", "extract_ranked_plain"]
+           "overlap_rank_plain", "extract_ranked", "extract_ranked_plain",
+           "slot_rounds", "slot_rounds_plain", "grouped_take"]

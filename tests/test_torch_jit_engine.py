@@ -10,15 +10,21 @@ whole rounds and two-round sessions on both time engines.  With its own
 bases (a CPU ``torch.Generator`` seeded by the slot's seed) the port is
 held to the equivalence suite's rules instead: legality replay, Eq. 1,
 three-way aggregate parity and the determinism twins
-(tests/test_scheduler_equivalence.py).  Tests marked ``cuda`` hold the
-slot kernels to their plain versions and the card's ``_slot_rounds`` to
-the CPU's; they skip without a GPU.
+(tests/test_scheduler_equivalence.py).  The ``slot_rounds`` kernel's
+sender phase walks each sender's in-neighbor list where the plain loop
+sorts globally (``slots.grouped_take``); a numpy model of that walk
+here is held equal to the sort on every recorded round and on
+hypothesis-drawn rounds.  Tests marked ``cuda`` hold the slot kernels
+to their plain versions and the card's ``_slot_rounds`` to the CPU's
+and to the plain loop on the card; they skip without a GPU.
 """
 import importlib.util
 from pathlib import Path
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -222,7 +228,7 @@ def _jax_round(mode, variant):
     return _ROUNDS[key]
 
 
-def _replay(static, args, device):
+def _replay(static, args, device, impl="cuda"):
     """One recorded slot through the port's ``_slot_rounds`` with JAX's
     bases, on ``device``; the grids as numpy."""
     (have, cand, owner, allowed, m, recv_ok, nbr, rem_up, rem_down,
@@ -233,7 +239,8 @@ def _replay(static, args, device):
         *static, *t, torch.from_numpy(np.array(allowed)).to(dev), int(m),
         torch.from_numpy(np.array(recv_ok)).to(dev), _i32(nbr).to(dev),
         _i32(rem_up).to(dev), _i32(rem_down).to(dev), int(batch_cap),
-        int(tau), jax_bases(int(seed), nbr.shape[0], nbr.shape[1]))
+        int(tau), jax_bases(int(seed), nbr.shape[0], nbr.shape[1]),
+        _i32(tje._transpose_lists(np.asarray(nbr))).to(dev), impl=impl)
     return out_snd.cpu().numpy(), out_col.cpu().numpy(), rounds
 
 
@@ -292,6 +299,176 @@ def test_session_is_byte_identical(jax_draws, time_engine):
                                       err_msg=(time_engine, key))
     assert np.asarray(b.t_start).tobytes() == np.asarray(a.t_start).tobytes()
     assert np.asarray(b.t_end).tobytes() == np.asarray(a.t_end).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# slot_rounds' sender phase: the in-neighbor walk against the global sort
+# ---------------------------------------------------------------------------
+
+def group_walk(in_nbr, u_v, req, recv_prio, is_new, recv_slots, rem_up):
+    """The ``slot_rounds`` kernel's sender phase (``csrc/slots.cu::
+    sender_split``) in numpy.  Each sender u walks its in-neighbor list
+    and takes as its group the rows paired with it (``u_v[v] == u``),
+    in ascending ``(recv_prio + 0.0, v)`` order (Python compares -0.0
+    and +0.0 equal, as the kernel's float compare does).  Each member
+    is ranked by counting the members before it: the first
+    ``recv_slots[u]`` new pairs pass the tau gate, and each grant is
+    capped at what ``rem_up[u]`` leaves after the gated requests before
+    it.  Returns the grants and u's budgets after them."""
+    n = len(u_v)
+    take = np.zeros(n, np.int64)
+    up_after = rem_up.astype(np.int64).copy()
+    slots_after = recv_slots.astype(np.int64).copy()
+    for u in range(n):
+        group = [int(v) for v in in_nbr[u] if v >= 0 and u_v[v] == u]
+        keyed = [(float(recv_prio[v]) + 0.0, v) for v in group]
+
+        def before(a, b):
+            return a[0] < b[0] or (a[0] == b[0] and a[1] < b[1])
+        gated = {}
+        for me in keyed:
+            new_rank = sum(1 for o in keyed if is_new[o[1]]
+                           and before(o, me))
+            v = me[1]
+            gated[v] = (int(req[v]) if not is_new[v]
+                        or new_rank < recv_slots[u] else 0)
+        for me in keyed:
+            v = me[1]
+            excl = sum(gated[o[1]] for o in keyed if before(o, me))
+            take[v] = min(gated[v], max(int(rem_up[u]) - excl, 0))
+            up_after[u] -= take[v]
+            slots_after[u] -= int(take[v] > 0 and is_new[v])
+    return take, up_after, slots_after
+
+
+def _hold_group_walk(nbr, u_v, req, recv_prio, is_new, recv_slots, rem_up):
+    """``slots.grouped_take`` (the plain loop's global sort) and the
+    plain loop's budget updates against ``group_walk`` on the port's
+    in-neighbor lists of ``nbr``, exactly."""
+    n = len(u_v)
+    want = slots.grouped_take(
+        torch.from_numpy(u_v.astype(np.int64)), torch.from_numpy(req),
+        torch.from_numpy(recv_prio), torch.from_numpy(is_new),
+        torch.from_numpy(recv_slots), torch.from_numpy(rem_up), n).numpy()
+    take, up_after, slots_after = group_walk(
+        tje._transpose_lists(nbr), u_v, req, recv_prio, is_new, recv_slots,
+        rem_up)
+    np.testing.assert_array_equal(take, want)
+    u_c = np.minimum(u_v, n - 1)
+    granted = want > 0
+    np.testing.assert_array_equal(
+        up_after, rem_up - np.bincount(u_c[granted], want[granted],
+                                       minlength=n).astype(np.int64))
+    np.testing.assert_array_equal(
+        slots_after, recv_slots - np.bincount(u_c[granted & is_new],
+                                              minlength=n))
+    return int(granted.sum())
+
+
+def _transpose_by_hand(nbr):
+    n = nbr.shape[0]
+    return [sorted(v for v in range(n) if u in set(nbr[v][nbr[v] >= 0]))
+            for u in range(n)]
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("mode", CENTRAL)
+def test_group_walk_matches_the_global_sort_on_recorded_rounds(
+        monkeypatch, mode, variant):
+    """Every grant round of every recorded slot (JAX's bases): the
+    kernel's in-neighbor walk gives the plain loop's grants."""
+    _, recorded = _jax_round(mode, variant)
+    rounds = []
+    orig = slots.grouped_take
+
+    def recording(*a):
+        rounds.append([t.clone().numpy() for t in a[:6]])
+        return orig(*a)
+
+    granted = 0
+    for static, args, _ in recorded:
+        nbr = np.asarray(args[6])
+        in_nbr = tje._transpose_lists(nbr)
+        assert [sorted(r[r >= 0]) for r in in_nbr] == \
+            _transpose_by_hand(nbr)
+        rounds.clear()
+        with monkeypatch.context() as m:
+            m.setattr(slots, "grouped_take", recording)
+            _replay(static, args, "cpu")
+        assert rounds
+        for u_v, req, prio, isn, slots_u, up in rounds:
+            granted += _hold_group_walk(nbr, u_v, req, prio, isn, slots_u,
+                                        up)
+    assert granted > 0
+
+
+@settings(max_examples=150, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2 ** 32 - 1), n=st.integers(1, 24),
+       symmetric=st.booleans(), paired=st.floats(0.0, 1.0),
+       prio=st.sampled_from(["ties", "signed zeros", "distinct"]))
+def test_group_walk_matches_the_global_sort_on_drawn_rounds(
+        seed, n, symmetric, paired, prio):
+    """Drawn rounds: overlays symmetric or not (with rows and columns
+    left empty), unpaired rows (all -inf), senders no one picked, ties
+    in recv_prio, -0.0 beside +0.0, zero budgets and requests."""
+    g = np.random.default_rng(seed)
+    adj = g.random((n, n)) < g.uniform(0.0, 0.7)
+    if symmetric:
+        adj |= adj.T
+    np.fill_diagonal(adj, False)
+    deg = adj.sum(1)
+    nbr = np.full((n, tje._pow2(max(int(deg.max(initial=1)), 1))), -1,
+                  np.int32)
+    u_v = np.full(n, n, np.int64)
+    for v in range(n):
+        row = g.permutation(np.flatnonzero(adj[v]))
+        nbr[v, :row.size] = row
+        if row.size and g.random() < paired:
+            u_v[v] = g.choice(row)
+    if prio == "ties":
+        recv_prio = g.choice(np.float32([-1.5, 0.25, 0.25, 3.0]), n)
+    elif prio == "signed zeros":
+        recv_prio = g.choice(np.float32([-0.0, 0.0, 0.5]), n)
+    else:
+        recv_prio = g.standard_normal(n).astype(np.float32)
+    req = np.where(u_v < n, g.integers(0, 12, n), 0).astype(np.int32)
+    is_new = (u_v < n) & (g.random(n) < 0.6)
+    recv_slots = g.integers(0, 4, n).astype(np.int32)
+    rem_up = g.integers(0, 30, n).astype(np.int32)
+    _hold_group_walk(nbr, u_v, req, recv_prio.astype(np.float32), is_new,
+                     recv_slots, rem_up)
+
+
+def test_in_neighbor_lists_follow_the_overlay():
+    """The neighbor lists and their transpose are cached on the state
+    and rebuilt when ``state.adj`` is replaced; the transpose assumes no
+    symmetry."""
+    sim = TSim(_cfg("greedy_fastest_first", 1, "jit"), device="cpu")
+    state = sim.state
+    nbr, in_nbr = tje._overlay_lists(state)
+    assert tje._neighbor_lists(state) is nbr
+    assert tje._overlay_lists(state)[1] is in_nbr
+    n = state.adj.shape[0]
+    for adj, lists, rows in ((state.adj, nbr, True),
+                             (state.adj, in_nbr, False)):
+        for i in range(n):
+            got = lists[i].numpy()
+            want = np.flatnonzero(adj[i] if rows else adj[:, i])
+            assert sorted(got[got >= 0]) == list(want)
+    g = np.random.default_rng(4)
+    adj = g.random((n, n)) < 0.3
+    adj[:, 0] = False                   # no one lists peer 0
+    np.fill_diagonal(adj, False)
+    assert not (adj == adj.T).all()
+    state.adj = adj
+    nbr2, in2 = tje._overlay_lists(state)
+    assert nbr2 is not nbr and in2 is not in_nbr
+    for i in range(n):
+        got = nbr2[i].numpy()
+        assert sorted(got[got >= 0]) == list(np.flatnonzero(adj[i]))
+        got = in2[i].numpy()
+        assert sorted(got[got >= 0]) == list(np.flatnonzero(adj[:, i]))
+    assert (in2[0] == -1).all()
 
 
 # ---------------------------------------------------------------------------
@@ -399,6 +576,7 @@ def test_phase_timers_and_counts():
     counts = tje.reset_counts()
     assert all(v > 0 for v in held.values())
     assert counts["slots"] > 0
+    # the CPU runs the plain loop: a read a round, plus the grids
     assert counts["host_reads"] == counts["rounds"] + counts["slots"]
 
 
@@ -440,6 +618,36 @@ def test_cuda_slot_rounds_match_the_cpu(mode):
     _, recorded = _jax_round(mode, "default")
     for static, args, _ in recorded:
         a = _replay(static, args, "cpu")
+        b = _replay(static, args, "cuda")
+        np.testing.assert_array_equal(b[0], a[0])
+        np.testing.assert_array_equal(b[1], a[1])
+        assert a[2] == b[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SMOKE.SLOT_CASES)
+def test_cuda_slot_rounds_match_the_plain_loop(case):
+    """The ``slot_rounds`` kernel exactly equal to ``slot_rounds_plain``
+    on the card, on seeded random slots of one of
+    ``chip_smoke.SLOT_CASES``' sizes: every mode, plane layout and
+    overlay and base variant (``chip_smoke.random_slot``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    assert SMOKE.check_small_slot_rounds("cuda", [case]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("mode", CENTRAL)
+def test_cuda_slot_rounds_match_the_plain_loop_on_recorded_slots(
+        mode, variant):
+    """Every recorded slot: ``_slot_rounds`` on the card through the
+    kernels equals the plain loop on the card (``impl="torch"``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    _, recorded = _jax_round(mode, variant)
+    for static, args, _ in recorded:
+        a = _replay(static, args, "cuda", impl="torch")
         b = _replay(static, args, "cuda")
         np.testing.assert_array_equal(b[0], a[0])
         np.testing.assert_array_equal(b[1], a[1])
