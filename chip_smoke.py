@@ -35,8 +35,10 @@ and imports nothing of the JAX package:
    and cases of each route (the tensor-core route at dh 512, 256, 96, 64
    and 32, chunk 64 and 128, one chunk and 2048 steps), f32 (5e-4 on h,
    C, n and m) and bf16 (3e-2), all finite; the slot engine's
-   slot_planes, overlap_rank and extract_ranked on ``SLOT_CASES`` in
-   every plane layout, exactly, and slot_rounds against its plain loop
+   slot_planes (chunk-major inventories with garbage in the bits of
+   peers at or above n; 1, 2, 4 and 8 words a CTA), overlap_rank and
+   extract_ranked on ``SLOT_CASES`` in every plane layout, exactly,
+   and slot_rounds against its plain loop
    on the card on seeded random slots of those sizes (every mode, plane
    layout, a non-symmetric overlay, tied bases), exactly;
 4. the main paths, each with the launch counters set to 0 just before
@@ -145,8 +147,11 @@ and imports nothing of the JAX package:
       host; the same round with ``device="cpu"`` byte-identical; slot
       20's ``_slot_rounds`` on the card equal to the plain loop on the
       card (``impl="torch"``) and on the CPU; its kernel inputs held
-      exactly against the plain versions and timed (``slot_rounds`` a
-      slot, with its rounds, CTAs and ptxas registers and spills;
+      exactly against the plain versions and timed (``slot_planes`` by
+      a CUDA graph over copies of its inventory that leave L2 cold,
+      beside the row-major inventory's bounds and its time there, with
+      its ptxas registers, spills and shared memory; ``slot_rounds``
+      a slot, with its rounds, CTAs and ptxas registers and spills;
       ``overlap_rank`` and ``extract_ranked`` on the plain loop's first
       round, off the path), and the slot traced by ``torch.profiler``
       (launches, cooperative ones included, copies, busy); the warm-up
@@ -157,8 +162,8 @@ and imports nothing of the JAX package:
       legal, t_round within the batched engine's band, the launches and
       reads of (a);
    c. the sweep's top, n 5000, on the card: legal, Eq. 1, not failed
-      open, the launches and reads of (a), its timings, and the kernels
-      held and timed at its shapes;
+      open, the launches and reads of (a), its timings and peak device
+      memory, and the kernels held and timed at its shapes;
    d. the jit session twin (n 20, K 16, churn 0.1, two rounds) on the
       slot and event engines: the card's traces equal the CPU's byte
       for byte;
@@ -408,7 +413,8 @@ def card_line() -> str:
 
 
 PTXAS_SOURCES = ("attention.cu", "mlstm.cu", "rglru.cu", "slots.cu")
-# build()'s ptxas report: (source, mangled kernel) -> registers, spills
+# build()'s ptxas report: (source, mangled kernel) -> registers, spills,
+# static shared memory
 PTXAS: dict = {}
 
 
@@ -465,6 +471,10 @@ def build() -> float:
                     words[words.index("registers,") - 1]
                     if "registers," in words
                     else words[words.index("Used") + 1])
+                if "smem," in words or "smem" in words:
+                    PTXAS[(src, func)]["smem_bytes"] = int(words[
+                        (words.index("smem,") if "smem," in words
+                         else words.index("smem")) - 2])
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 log(f"{src} {line.strip()}")
@@ -543,6 +553,39 @@ def time_fresh_ms(fn, src, runs: int = 10, pool: int = 20) -> float:
         e.record()
         e.synchronize()
         times.append(a.elapsed_time(e) / pool)
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls: int, runs: int = 10) -> float:
+    """Device milliseconds of one call: median over ``runs`` CUDA-event
+    timings of one replay of a CUDA graph that holds ``fn(0)`` to
+    ``fn(calls - 1)``, so the host's enqueue (the wrapper's checks and
+    allocations) is not in the time, as it is in ``time_ms`` for a call
+    shorter than its enqueue.  Every call's result is kept until the
+    timing ends, so no call writes into memory an earlier call wrote
+    (and left in L2); ``fn`` picks its inputs by the call's index."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)                           # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kept = [fn(i) for i in range(calls)]
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(a.elapsed_time(e) / calls)
+    del graph, kept
     return statistics.median(times)
 
 
@@ -767,19 +810,45 @@ def _mlstm_inputs(b, h, t, dh, gate_scale, dtype, layout, gen):
 
 
 # (n, m_pad, m_cnt, w_full): one word, ragged candidates, S = 1 and 16,
-# the sweep's 8192 candidates
+# the sweep's 8192 candidates; W = 1, 8, 4, 256 and 2 words, so
+# slot_planes runs every width of CTA (1, 2, 4, 8 words) and a row that
+# spans CTAs; the inventory holds 32 w_full chunks
 SLOT_CASES = [(7, 32, 32, 20), (50, 256, 200, 400), (33, 128, 97, 64),
-              (300, 8192, 8000, 3219)]
+              (300, 8192, 8000, 3219), (20, 64, 41, 3)]
+
+
+def slot_case(case, g):
+    """Seeded stage-1 inputs of ``case``'s (n, m_pad, m_cnt, w_full)
+    size from numpy generator ``g``, as CPU tensors (have_t, cand,
+    owner, allowed, recv_ok): a chunk-major inventory of 32 w_full rows
+    of ``_n_wp(n)`` random words (bit 31 set, garbage in the bits of
+    peers at or above n, every third row sparser), candidate ids
+    anywhere in it, random owners, windows and receivers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.jit_engine import _n_wp
+    n, m_pad, m_cnt, w_full = case
+    have_t = g.integers(-2 ** 31, 2 ** 31, size=(w_full * 32, _n_wp(n)),
+                        dtype=np.int64).astype(np.int32)
+    have_t[::3] &= g.integers(-2 ** 31, 2 ** 31, size=have_t[::3].shape,
+                              dtype=np.int64).astype(np.int32)
+    cand = g.choice(w_full * 32, size=m_pad, replace=False)
+    owner = g.integers(0, n, size=m_pad)
+    return [torch.from_numpy(have_t), torch.from_numpy(cand).int(),
+            torch.from_numpy(owner).int(),
+            torch.from_numpy(g.random(m_pad) < 0.5),
+            torch.from_numpy(g.random(n) < 0.8)]
 
 
 def check_small_slots(device="cuda", cases=SLOT_CASES) -> None:
     """The three slot kernels against their plain versions on seeded
     inputs (``cases`` of (n, m_pad, m_cnt, w_full), every plane layout:
-    with and without the owner tier, gated and ungated), exact: random
-    inventories with bit 31 set, candidate ids anywhere in the universe,
-    random senders, grants of 0 to 64 columns with the tier split at its
-    count, rows with no grant.  tests/test_torch_jit_engine.py runs it
-    case by case."""
+    with and without the owner tier, gated and ungated), exact:
+    ``slot_case``'s chunk-major inventories with garbage pad bits;
+    random senders, grants of 0 to 64 columns with the tier split at
+    its count, rows with no grant.
+    tests/test_torch_jit_engine.py runs it case by case."""
     import numpy as np
     import torch
 
@@ -788,16 +857,7 @@ def check_small_slots(device="cuda", cases=SLOT_CASES) -> None:
     held = 0
     for n, m_pad, m_cnt, w_full in cases:
         g = np.random.default_rng(n * m_pad)
-        have = g.integers(-2 ** 31, 2 ** 31, size=(n, w_full),
-                          dtype=np.int64).astype(np.int32)
-        have[::3] &= g.integers(-2 ** 31, 2 ** 31, size=have[::3].shape,
-                                dtype=np.int64).astype(np.int32)
-        cand = g.choice(w_full * 32, size=m_pad, replace=False)
-        owner = g.integers(0, n, size=m_pad)
-        host = [torch.from_numpy(have), torch.from_numpy(cand).int(),
-                torch.from_numpy(owner).int(),
-                torch.from_numpy(g.random(m_pad) < 0.5),
-                torch.from_numpy(g.random(n) < 0.8)]
+        host = slot_case((n, m_pad, m_cnt, w_full), g)
         for nonowner in (True, False):
             for ungated in (True, False):
                 kw = dict(nonowner=nonowner, ungated=ungated)
@@ -852,17 +912,19 @@ def random_slot(case, mode_id: int, nonowner: bool, ungated: bool,
     import numpy as np
     import torch
 
-    from repro_torch.core.jit_engine import _pow2, _transpose_lists
+    from repro_torch.core.jit_engine import _n_wp, _pow2, _transpose_lists
     from repro_torch.kernels import slots
     n, m_pad, m_cnt, w_full = case
     g = np.random.default_rng([n, m_pad, mode_id, nonowner, ungated,
                                variant])
-    have = g.integers(-2 ** 31, 2 ** 31, size=(n, w_full),
-                      dtype=np.int64).astype(np.int32)
-    have[::2] &= g.integers(-2 ** 31, 2 ** 31, size=have[::2].shape,
-                            dtype=np.int64).astype(np.int32)
+    have_t = g.integers(-2 ** 31, 2 ** 31, size=(w_full * 32, _n_wp(n)),
+                        dtype=np.int64).astype(np.int32)
+    # every even peer holds about a quarter of the chunks, odd ones half
+    have_t &= g.integers(-2 ** 31, 2 ** 31, size=have_t.shape,
+                         dtype=np.int64).astype(np.int32) | np.int32(
+                             -0x55555556)
     cand = g.choice(w_full * 32, size=m_pad, replace=False)
-    host = [torch.from_numpy(have), torch.from_numpy(cand).int(),
+    host = [torch.from_numpy(have_t), torch.from_numpy(cand).int(),
             torch.from_numpy(g.integers(0, n, size=m_pad)).int(),
             torch.from_numpy(g.random(m_pad) < 0.5),
             torch.from_numpy(g.random(n) < 0.85)]
@@ -2309,14 +2371,36 @@ def capture_kernel_inputs(slot_args) -> dict:
     return got
 
 
-def _planes_bytes(a, outs) -> float:
+# slot_planes on slot 20 over the row-major inventory it replaced, for
+# the log line only: that kernel's wrapper back to back (ms, this
+# script's run on an NVIDIA H100 80GB HBM3 at 700 W)
+ROW_MAJOR_PLANES_MS = {"n 500": 0.0585, "n 5000": 1.0138}
+# bytes that pass between two reads of one copy of slot_planes' inputs
+# when its device time is taken: twice the H100's 50 MB L2, so the
+# candidates' have_t rows come from HBM, as on the path
+COLD_BYTES = 100e6
+GRAPH_CALLS = 50                # slot_planes calls a timed graph holds
+
+
+def _planes_bytes(a, outs) -> dict:
+    """Bytes of stage 1 on these inputs: ``"bound"``, its own (the
+    candidates' chunk-major rows, the ``ceil(n / 32)`` words that hold
+    peers below n; cand, owner and allowed once; recv_ok; the outputs),
+    and, for the row-major inventory it replaced, ``"row_words"`` (each
+    receiver's inventory words that hold a candidate) and
+    ``"row_sectors"`` (the 32-byte sectors those words lie in, what the
+    card moves: no kernel over that layout reads less)."""
     import torch
-    have, cand, owner, allowed, recv_ok, m_cnt = a
-    words = torch.unique(cand[:m_cnt].long() >> 5).numel()
-    reads = have.shape[0] * words * 4.0 + cand.numel() * 9.0 + recv_ok.numel()
-    writes = sum(t.numel() * t.element_size() for t in outs
-                 if t is not None)
-    return reads + writes
+    have_t, cand, owner, allowed, recv_ok, m_cnt = a
+    n = recv_ok.shape[0]
+    real = cand[:m_cnt].long()
+    rows = torch.unique(real).numel()
+    rest = cand.numel() * 9.0 + n + sum(
+        t.numel() * t.element_size() for t in outs if t is not None)
+    return {"bound": rows * -(-n // 32) * 4.0 + rest,
+            "row_words": n * torch.unique(real >> 5).numel() * 4.0 + rest,
+            "row_sectors": n * torch.unique(real >> 8).numel() * 32.0
+            + rest}
 
 
 def _rank_bytes(a, sbc) -> float:
@@ -2355,11 +2439,14 @@ def slot_kernel_rows(inputs: dict, counts: dict, slots_run: int,
     """Each slot kernel on its captured inputs: on the card against its
     plain version on the card (exact integer equality), timed with CUDA
     events beside the plain version, and its bound (bytes: inputs read
-    once, outputs written once; the inventory words that hold a
-    candidate column, the plane rows of this round's senders, the need
-    rows of this round's grants).  extract_ranked clears ``need`` in
-    place, so each timed call runs on its own fresh copy, made before
-    the timing starts (``time_fresh_ms``)."""
+    once, outputs written once; the candidates' rows of the chunk-major
+    inventory, the plane rows of this round's senders, the need rows of
+    this round's grants).  ``slot_planes``' time is a CUDA graph's
+    over copies of ``have_t`` that leave L2 cold (``planes_cold_ms``),
+    beside its wrapper's back-to-back time and the row-major layout's
+    bounds.  extract_ranked clears
+    ``need`` in place, so each timed call runs on its own fresh copy,
+    made before the timing starts (``time_fresh_ms``)."""
     import torch
 
     from repro_torch.kernels import slots
@@ -2401,11 +2488,18 @@ def slot_kernel_rows(inputs: dict, counts: dict, slots_run: int,
             ms = time_ms(lambda: fn(*a, **kw, impl="cuda"))
             plain = time_ms(lambda: fn(*a, **kw, impl="torch"), runs=3)
             nbytes = _rounds_bytes(a, got)
+        elif name == "slot_planes":
+            # shorter than the wrapper's enqueue: the device time is a
+            # CUDA graph's, the back-to-back one kept
+            wrapper_ms = time_ms(lambda: run("cuda"))
+            planes_bytes = _planes_bytes(a, got)
+            nbytes = planes_bytes["bound"]
+            ms, copies = planes_cold_ms(a, kw, nbytes)
+            plain = time_ms(lambda: run("torch"), runs=3)
         else:
             ms = time_ms(lambda: run("cuda"))
             plain = time_ms(lambda: run("torch"), runs=3)
-            nbytes = (_planes_bytes(a, got) if name == "slot_planes"
-                      else _rank_bytes(a, got[0]))
+            nbytes = _rank_bytes(a, got[0])
         bound = bound_ms(nbytes)
         row = _row(name, "csrc/slots.cu", SLOT_LINES[name], counts, 0.0, ms,
                    plain, bound, None)
@@ -2414,9 +2508,28 @@ def slot_kernel_rows(inputs: dict, counts: dict, slots_run: int,
         row["library"] = "none (no PyTorch popcount op)"
         width = (a[1].shape[0] // 32 if name == "slot_planes"
                  else a[2].shape[1])
-        row["shape"] = f"{label}: planes ({a[0].shape[0]}, {width}) words"
+        rows_n = a[4].shape[0] if name == "slot_planes" else a[0].shape[0]
+        row["shape"] = f"{label}: planes ({rows_n}, {width}) words"
         extra = ""
-        if name == "slot_rounds":
+        if name == "slot_planes":
+            wb = min(slots.PLANE_WORDS, width)
+            word_bound = bound_ms(planes_bytes["row_words"])[0]
+            floor = bound_ms(planes_bytes["row_sectors"])[0]
+            row.update(wrapper_ms=wrapper_ms, words_per_cta=wb,
+                       have_t_copies=copies,
+                       row_major_word_bound_ms=word_bound,
+                       row_major_sector_floor_ms=floor)
+            row["ptxas"] = next(
+                (v for (src, f), v in PTXAS.items()
+                 if f"slot_planes_kernelILi{wb}E" in f), None)
+            extra = (f"; device time over {copies} copies of have_t "
+                     f"{tuple(a[0].shape)} words (L2 cold), the wrapper back"
+                     f" to back {wrapper_ms:.4f} ms (inputs warm); {wb} "
+                     f"words a CTA; over the row-major inventory: "
+                     f"{ROW_MAJOR_PLANES_MS.get(label)} ms back to back on "
+                     f"an H100 at 700 W, word bound {word_bound:.4f} ms, "
+                     f"sector floor {floor:.4f} ms; ptxas {row['ptxas']}")
+        elif name == "slot_rounds":
             from repro_torch.kernels import _build
             row["rounds"] = int(got[2][0])
             row["grid_ctas"] = _build.extension().slot_rounds_grid(
@@ -2435,6 +2548,22 @@ def slot_kernel_rows(inputs: dict, counts: dict, slots_run: int,
             f"{row['launches_per_slot']:.2f} a slot{extra}; equal to the "
             "plain version")
     return rows
+
+
+def planes_cold_ms(a, kw, nbytes: float) -> tuple[float, int]:
+    """``slot_planes``' device time on its captured inputs (``graph_ms``)
+    with call i reading copy i % k of ``have_t``, k the fewest copies
+    (at least 3, at most the graph's calls) between whose reads
+    ``COLD_BYTES`` pass, a call moving ``nbytes``; and k."""
+    import math
+
+    from repro_torch.kernels import slots
+    k = min(max(3, math.ceil(COLD_BYTES / nbytes)), GRAPH_CALLS)
+    copies = [a[0].clone() for _ in range(k)]
+    ms = graph_ms(lambda i: slots.slot_planes(copies[i % k], *a[1:], **kw),
+                  calls=GRAPH_CALLS)
+    del copies
+    return ms, k
 
 
 def profile_slot(slot_args) -> dict:
@@ -2670,10 +2799,13 @@ def run_slot_engine_paths(device=None) -> tuple[dict, list[dict]]:
 
     # c. the sweep's top
     if card:
+        import torch
         n = SLOT_NS[1]
         cfg = sweep_cfg(n, "jit")
+        torch.cuda.reset_peak_memory_stats()
         res, host_s, ph, cnt, launches, slot_args = jit_round(
             cfg, dev, True, SLOT_CAPTURE_AT)
+        peak = torch.cuda.max_memory_allocated() / 1e9
         check(not res.metrics.failed_open,
               f"jit n={n}: the warm-up failed open")
         check(privacy.check_eq1(res.log, cfg.owner_throttle, cfg.k_gate),
@@ -2685,6 +2817,11 @@ def run_slot_engine_paths(device=None) -> tuple[dict, list[dict]]:
         out[f"n{n}"] = _slot_line(f"n={n} K={SLOT_K} on {dev}", res, host_s,
                                   ph, cnt, launches)
         out[f"n{n}"]["legality_s"] = legal_s
+        out[f"n{n}"]["peak_gb"] = peak
+        inv = cfg.total_chunks * je._n_wp(n) * 4 / 1e6
+        log(f"jit n={n}: peak device memory {peak:.3f} GB (the chunk-major "
+            f"inventory {inv:.1f} MB, held twice: slot {SLOT_CAPTURE_AT}'s "
+            "captured inputs keep a copy)")
         del res
         rows += slot_kernel_rows(capture_kernel_inputs(slot_args), launches,
                                  cnt["slots"], f"n {n}")

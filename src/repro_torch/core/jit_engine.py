@@ -34,11 +34,16 @@ the CPU, or with ``impl="torch"``, the rounds run as the plain loop
 ``slot_rounds_plain``: torch ops and one host read a round.
 
 Words are int32 tensors with the uint32 bit patterns of the JAX
-package's words.  The swarm-wide inventory lives on the device as a
-packed ``(n, ceil(nK/32))`` plane, synced incrementally from the
-transfer log by an in-place accumulating scatter (delivery exactly once
-makes add and OR the same), so a slot never re-reads the O(n * nK)
-boolean ``have`` matrix.
+package's words.  The swarm-wide inventory lives on the device
+chunk-major, where the JAX package keeps it row-major: ``have_t`` is
+``(nK, n_wp)`` words, bit ``v & 31`` of word ``v >> 5`` of row ``c`` set
+when peer v holds chunk c, and ``n_wp`` is ``ceil(n / 32)`` rounded up
+to a multiple of 8, so every row starts on a 32-byte sector.  Stage 1
+then reads only the candidates' rows, each a few hundred contiguous
+bytes.  The inventory is synced incrementally from the transfer log by
+an in-place accumulating scatter (delivery exactly once makes add and
+OR the same), so a slot never re-reads the O(n * nK) boolean ``have``
+matrix.
 
 Randomness: exactly two host draws a slot from ``state.rng``, the
 rarest-first tie-break and then one 31-bit seed, in the JAX package's
@@ -123,8 +128,10 @@ def _pow2(x: int) -> int:
 
 
 def _pack_words(bits: np.ndarray, w: int) -> np.ndarray:
-    """(n, m) bool -> (n, w) uint32, bit ``c & 31`` of word ``c >> 5``
-    is column ``c`` (little-endian bit order; pad bits stay zero)."""
+    """(rows, m) bool -> (rows, w) uint32, bit ``c & 31`` of word
+    ``c >> 5`` is column ``c`` (little-endian bit order; pad bits stay
+    zero).  Packing ``have.T`` with ``w = _n_wp(n)`` gives the
+    chunk-major inventory."""
     p = np.packbits(bits, axis=1, bitorder="little")
     buf = np.zeros((bits.shape[0], w * 4), dtype=np.uint8)
     buf[:, :p.shape[1]] = p
@@ -132,6 +139,12 @@ def _pack_words(bits: np.ndarray, w: int) -> np.ndarray:
     if not np.little_endian:            # pragma: no cover - x86/arm are LE
         words = words.byteswap()
     return words
+
+
+def _n_wp(n: int) -> int:
+    """Words a chunk-major inventory row: ``ceil(n / 32)`` rounded up to
+    a multiple of 8, so each row starts on a 32-byte sector."""
+    return -(-n // 256) * 8
 
 
 def _device(state: SwarmState) -> torch.device:
@@ -199,16 +212,17 @@ def _neighbor_lists(state: SwarmState) -> torch.Tensor:
 
 def _scatter_bits(words: torch.Tensor, rows, wcol, vals) -> torch.Tensor:
     # Delivery-exactly-once (state.apply_transfers de-dups against
-    # ``have``) keeps every (row, chunk) bit unique for the whole round,
+    # ``have``) keeps every (chunk, peer) bit unique for the whole round,
     # so add == bitwise-or; pad entries carry vals == 0.  In place.
     return words.index_put_((rows.long(), wcol.long()), vals,
                             accumulate=True)
 
 
 def _log_scatter(state: SwarmState, pos: int, nb: int):
-    """Scatter operands (rows, word column, bit value) for transfer-log
-    batches ``[pos:nb)``, padded to a power of two with zero values, on
-    the engine's device (vals: uint32 bits as int32)."""
+    """Scatter operands (chunk row, peer word column, bit value) into
+    the chunk-major inventory for transfer-log batches ``[pos:nb)``,
+    padded to a power of two with zero values, on the engine's device
+    (vals: uint32 bits as int32)."""
     if pos < nb:
         rcv = np.concatenate(state.log.receivers[pos:nb])
         chk = np.concatenate(state.log.chunks[pos:nb])
@@ -219,43 +233,38 @@ def _log_scatter(state: SwarmState, pos: int, nb: int):
     rows = np.zeros(pad, dtype=np.int32)
     wcol = np.zeros(pad, dtype=np.int32)
     vals = np.zeros(pad, dtype=np.uint32)
-    rows[:rcv.size] = rcv
-    wcol[:rcv.size] = chk >> 5
+    rows[:rcv.size] = chk
+    wcol[:rcv.size] = rcv >> 5
     vals[:rcv.size] = np.left_shift(
-        np.uint32(1), (chk & 31).astype(np.uint32))
+        np.uint32(1), (rcv & 31).astype(np.uint32))
     dev = _device(state)
     return _upload(rows, dev), _upload(wcol, dev), _upload(vals, dev)
 
 
-def _diag_words(state: SwarmState, w_full: int) -> np.ndarray:
-    """Packed owner-diagonal inventory (client v holds exactly chunks
-    [vK, vK+K)), the analytic post-construction state, built directly
-    in the bit domain."""
-    n = state.cfg.n
-    K = state.cfg.chunks_per_update
-    v = np.arange(n, dtype=np.int64)
-    lo = (v * K)[:, None]
-    wj = lo // 32 + np.arange(K // 32 + 2)[None, :]
-    s = np.clip(lo - 32 * wj, 0, 32).astype(np.uint64)
-    e = np.clip(lo + K - 32 * wj, 0, 32).astype(np.uint64)
-    mask = (((np.uint64(1) << e) - 1)
-            ^ ((np.uint64(1) << s) - 1)).astype(np.uint32)
-    words = np.zeros((n, w_full), dtype=np.uint32)
-    np.bitwise_or.at(
-        words,
-        (np.broadcast_to(v[:, None], wj.shape),
-         np.minimum(wj, w_full - 1)),
-        np.where(wj < w_full, mask, np.uint32(0)))
+def _diag_words(state: SwarmState, dev) -> torch.Tensor:
+    """Chunk-major owner-diagonal inventory on ``dev`` (chunk c is held
+    by its owner c // K alone), the analytic post-construction state:
+    one bit a row, set where the words live, so nothing is packed or
+    uploaded."""
+    chunk = torch.arange(state.have.shape[1], device=dev)
+    owner = chunk // state.cfg.chunks_per_update
+    words = torch.zeros((chunk.numel(), _n_wp(state.cfg.n)),
+                        dtype=torch.int32, device=dev)
+    bit = (owner & 31).int()
+    # int32 shifts wrap: 1 << 31 is the word 0x80000000
+    words[chunk, owner >> 5] = torch.ones_like(bit) << bit
     return words
 
 
 def _sync_have_dev(state: SwarmState) -> torch.Tensor:
-    """Device copy of the packed swarm inventory, synced incrementally.
+    """Device copy of the chunk-major packed inventory ``have_t``,
+    synced incrementally.
 
     The transfer log is the single write path for ``state.have`` after
     construction, so replaying batches appended since the last call
     reproduces the matrix bit for bit.  A swapped ``have`` identity
-    (Byzantine claimed inventories) falls back to a full repack.
+    (Byzantine claimed inventories) falls back to a full repack.  Bits
+    of peers at or above n stay zero.
     """
     nb = len(state.log.receivers)
     cache = getattr(state, "_jit_have_cache", None)
@@ -265,19 +274,18 @@ def _sync_have_dev(state: SwarmState) -> torch.Tensor:
             dev = _scatter_bits(dev, *_log_scatter(state, pos, nb))
         state._jit_have_cache = (state.have, dev, nb)
         return dev
-    w_full = -(-state.have.shape[1] // 32)
     if cache is None and state.have is getattr(
             state, "_have_pristine", None):
         # First build of the genuine inventory: the owner diagonal is
         # analytic and the log already records every later delivery, so
-        # packing in the bit domain skips an np.packbits pass over the
-        # multi-GB bool matrix.
-        dev = _scatter_bits(_upload(_diag_words(state, w_full),
-                                    _device(state)),
+        # building it on the device skips an np.packbits pass over the
+        # multi-GB bool matrix and the upload of the packed words.
+        dev = _scatter_bits(_diag_words(state, _device(state)),
                             *_log_scatter(state, 0, nb))
         state._jit_have_cache = (state.have, dev, nb)
         return dev
-    dev = _upload(_pack_words(state.have, w_full), _device(state))
+    dev = _upload(_pack_words(state.have.T, _n_wp(state.cfg.n)),
+                  _device(state))
     state._jit_have_cache = (state.have, dev, nb)
     return dev
 
@@ -301,15 +309,16 @@ def _draw_bases(seed: int, n: int, d_pad: int):
 
 
 def _slot_rounds(mode_id: int, nonowner: bool, ungated: bool,
-                 t_cap: int, r_max: int, have_dev, cand, owner_row,
+                 t_cap: int, r_max: int, have_t, cand, owner_row,
                  own_allowed, m_cnt: int, recv_ok, nbr, rem_up, rem_down,
                  batch_cap: int, tau: int, bases, in_nbr, *,
                  impl: str = "cuda"):
     """One slot: plane build plus budgeted-round matching.
 
-    Stage 1 (``slot_planes``) gathers the candidate columns out of the
-    device-resident packed inventory in rarest-first bit order and
-    applies the owner-window gate.  Stage 2 (``slot_rounds``) runs the
+    Stage 1 (``slot_planes``) gathers the candidates' rows out of the
+    device-resident chunk-major inventory ``have_t`` (``_sync_have_dev``),
+    turns them into receiver rows in rarest-first bit order and applies
+    the owner-window gate.  Stage 2 (``slot_rounds``) runs the
     grant rounds, carrying the need planes, the remaining uplink/downlink
     and tau budgets, the serving and tombstone pair masks and the
     fixed-shape output grids; every round is fully masked.  ``bases``
@@ -324,10 +333,10 @@ def _slot_rounds(mode_id: int, nonowner: bool, ungated: bool,
     n, t_cap) int32 grids on the device (rows past ``rounds`` are -1),
     and how many rounds ran.
     """
-    dev = have_dev.device
+    dev = have_t.device
     plain = impl == "torch" or dev.type == "cpu"
     plane_a, plane_b, need, need_cnt, sup_any = _k.slot_planes(
-        have_dev, cand, owner_row, own_allowed, recv_ok, m_cnt,
+        have_t, cand, owner_row, own_allowed, recv_ok, m_cnt,
         nonowner=nonowner, ungated=ungated, impl=impl)
     out_snd, out_col, rounds = _k.slot_rounds(
         plane_a, plane_b, need, need_cnt, sup_any, nbr, in_nbr,
@@ -404,13 +413,13 @@ def schedule_centralized_jit(state: SwarmState, mode: str):
     r_max = min(_pow2(-(-max_down // min(batch_cap, max_down)) + 8), 64)
 
     _t0 = _clock()
-    have_dev = _sync_have_dev(state)
+    have_t = _sync_have_dev(state)
     nbr_dev, in_dev = _overlay_lists(state)
     _t1 = _clock()
-    dev = have_dev.device
+    dev = have_t.device
     bases = _draw_bases(seed, n, nbr_dev.shape[1])
     out_snd, out_col, rounds = _slot_rounds(
-        _MODE_IDS[mode], nonowner_pass, ungated, t_cap, r_max, have_dev,
+        _MODE_IDS[mode], nonowner_pass, ungated, t_cap, r_max, have_t,
         _upload(cand_p, dev), _upload(owner_p, dev),
         _upload(allowed_p, dev), m, _upload(recv_ok, dev), nbr_dev,
         _upload(rem_up, dev), _upload(rem_down, dev),

@@ -231,22 +231,23 @@ void mlstm_chunkwise_tc(const at::Tensor& q, const at::Tensor& k,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void slot_planes(const at::Tensor& have, const at::Tensor& cand,
+void slot_planes(const at::Tensor& have_t, const at::Tensor& cand,
                  const at::Tensor& owner, const at::Tensor& allowed,
                  const at::Tensor& recv_ok, int64_t m_cnt, bool nonowner,
                  bool ungated, const at::Tensor& plane_a,
-                 const at::Tensor& plane_b, const at::Tensor& need,
-                 const at::Tensor& need_cnt, const at::Tensor& sup_any) {
-  const c10::cuda::CUDAGuard guard(have.device());
+                 const at::Tensor& plane_b,
+                 const at::Tensor& need, const at::Tensor& need_cnt,
+                 const at::Tensor& sup_any, const at::Tensor& partial) {
+  const c10::cuda::CUDAGuard guard(have_t.device());
   check_launch(repro_torch::launch_slot_planes(
-                   have.data_ptr<int32_t>(), have.size(0), have.size(1),
+                   have_t.data_ptr<int32_t>(), have_t.size(1),
                    cand.data_ptr<int32_t>(), owner.data_ptr<int32_t>(),
-                   allowed.data_ptr<bool>(), recv_ok.data_ptr<bool>(), m_cnt,
-                   cand.size(0), nonowner ? 1 : 0, ungated ? 1 : 0,
-                   plane_a.data_ptr<int32_t>(),
+                   allowed.data_ptr<bool>(), recv_ok.data_ptr<bool>(),
+                   recv_ok.size(0), m_cnt, cand.size(0), nonowner ? 1 : 0,
+                   ungated ? 1 : 0, plane_a.data_ptr<int32_t>(),
                    nonowner ? plane_b.data_ptr<int32_t>() : nullptr,
                    need.data_ptr<int32_t>(), need_cnt.data_ptr<int32_t>(),
-                   sup_any.data_ptr<bool>(),
+                   sup_any.data_ptr<bool>(), partial.data_ptr<int32_t>(),
                    c10::cuda::getCurrentCUDAStream().stream()),
                "slot_planes");
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -404,8 +405,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Chunkwise mLSTM on TF32 wgmma (q, k, v, i, f, h, hbuf, C, n, m, "
         "scratch, chunk)");
   m.def("slot_planes", &slot_planes,
-        "Slot engine stage 1 (have, cand, owner, allowed, recv_ok, m_cnt, "
-        "nonowner, ungated, plane_a, plane_b, need, need_cnt, sup_any)");
+        "Slot engine stage 1 (have_t, cand, owner, allowed, recv_ok, m_cnt, "
+        "nonowner, ungated, plane_a, plane_b, need, "
+        "need_cnt, sup_any, partial)");
   m.def("overlap_rank", &overlap_rank,
         "Per-round overlap rank counts (plane_a, plane_b, has_b, need, "
         "u_c, sbc, cnt_b)");

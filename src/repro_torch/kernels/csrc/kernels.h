@@ -143,9 +143,18 @@ cudaError_t launch_mlstm_chunkwise_tc(
 // first three returns the error of its launch (cudaGetLastError); a
 // slot runs slot_planes and then slot_rounds, and overlap_rank and
 // extract_ranked run alone the row bodies slot_rounds runs a round.
-//   launch_slot_planes: have (n, w_full); cand, owner (m_pad,) int32;
-//     allowed (m_pad,), recv_ok (n,) bool.  Writes plane_a (and, when
-//     nonowner, plane_b), need, need_cnt (n,) int32 and sup_any (n,).
+//   launch_slot_planes: have_t (universe, n_wp) chunk-major (bit v & 31
+//     of word v >> 5 of row c: peer v holds chunk c; n_wp a multiple of
+//     8, the rows 16-byte aligned); cand, owner (m_pad,) int32; allowed
+//     (m_pad,), recv_ok (n,) bool.  A CTA builds WB = min(8, W) words
+//     of 256 rows.  Writes plane_a (and, when nonowner, plane_b), need,
+//     need_cnt (n,) int32 and sup_any (n,).  partial holds (W / WB, n)
+//     int32 scratch words when that is above 1.  At most 65,535 x 256
+//     rows, and W a power of two below 8 or a multiple of 8; returns
+//     cudaErrorInvalidValue otherwise.  Rows whose words span CTAs
+//     merge their counts through tickets in static device memory, one
+//     array a device: launches on one device must not overlap in time
+//     (one stream, as the engine launches them).
 //   launch_overlap_rank: sbc (n, S) int32, the inclusive superblock
 //     cumsum of popc(plane_a[u_c] & need) (S = 16 when W % 16 == 0,
 //     else 1), and cnt_b (n,) int32, popc(plane_b[u_c] & need) (0
@@ -154,14 +163,15 @@ cudaError_t launch_mlstm_chunkwise_tc(
 //     of plane_a[u_c] & need (sbc its cumsum), then up to take of
 //     plane_b[u_c] & need, -1 past; clears them from need.  Needs
 //     0 <= t_a <= take <= t_cap.
-cudaError_t launch_slot_planes(const int32_t* have, int64_t n,
-                               int64_t w_full, const int32_t* cand,
-                               const int32_t* owner, const bool* allowed,
-                               const bool* recv_ok, int64_t m_cnt,
-                               int64_t m_pad, int nonowner, int ungated,
+cudaError_t launch_slot_planes(const int32_t* have_t, int64_t n_wp,
+                               const int32_t* cand, const int32_t* owner,
+                               const bool* allowed, const bool* recv_ok,
+                               int64_t n, int64_t m_cnt, int64_t m_pad,
+                               int nonowner, int ungated,
                                int32_t* plane_a, int32_t* plane_b,
                                int32_t* need, int32_t* need_cnt,
-                               bool* sup_any, cudaStream_t stream);
+                               bool* sup_any, int32_t* partial,
+                               cudaStream_t stream);
 cudaError_t launch_overlap_rank(const int32_t* plane_a,
                                 const int32_t* plane_b, int has_b,
                                 const int32_t* need, const int64_t* u_c,

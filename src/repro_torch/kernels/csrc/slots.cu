@@ -10,10 +10,26 @@
 // launches on every popcount; here __popc does it in one instruction.
 //
 // A slot is two launches:
-//   slot_planes  stage 1, one CTA per receiver row v, threads over the
-//                row's W words (W = m_pad / 32).  Simple first: its
-//                candidate gather is uncoalesced (a column's word is
-//                wherever its chunk id puts it).
+//   slot_planes  stage 1, over the chunk-major inventory have_t (one row
+//                a chunk, bit v for peer v; rows of n_wp words, n_wp a
+//                multiple of 8).  A CTA pairs 256 receivers (8 warps, a
+//                32-receiver word of have_t each) with WB output words
+//                (32 WB candidates; WB = min(8, W), a 32-byte sector
+//                of each plane row: 640 CTAs at n 5000, 64 at n 500,
+//                where more, smaller CTAs were slower).  It loads the
+//                candidates' cand, owner and allowed once, and the one
+//                32-byte sector of each candidate's have_t row that holds
+//                its receivers, into shared memory; each warp turns its
+//                32 x 32 bit tiles around with a shuffle butterfly (lane
+//                l holds candidate l's word, lane r ends with receiver
+//                r's word), marks owner cells through a ballot of the
+//                lanes whose owner lies in its block, stages its rows'
+//                words and stores them as whole sectors.  Counts of a
+//                row whose words span CTAs merge through a partial
+//                buffer and a self-resetting ticket a group of 256
+//                receivers: one launch, nothing reset by the host.
+//                The tickets are one array a device: launches on one
+//                device must not overlap.
 //   slot_rounds  every grant round of the slot in one persistent
 //                cooperative launch, as the JAX package's while_loop.  A
 //                round moves a few MB at most, so a launch a phase (and
@@ -34,10 +50,12 @@
 // against their plain versions alone.
 //
 // What bounds them: slot_planes and the two row passes move a few bytes
-// per operation (bytes); slot_rounds is bound by its barriers and the
-// latency of its dependent phases, far above its bytes.  The bound
-// chip_smoke.py states for each is its inputs read once and its outputs
-// written once over 3.35 TB/s.
+// per operation (bytes); slot_planes reads the candidates' have_t rows
+// (a few MB) and writes the planes (15 MB at n 5000), where a row-major
+// inventory made it read a scattered sector per candidate and receiver.
+// slot_rounds is bound by its barriers and the latency of its dependent
+// phases, far above its bytes.  The bound chip_smoke.py states for each
+// is its inputs read once and its outputs written once over 3.35 TB/s.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -59,19 +77,6 @@ constexpr int kMaxRoundBlocksPerSm = 2;   // barrier cost grows with CTAs
 constexpr int kGffRetries = 3;            // as the batched engine
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int block_sum(int x, int* scratch) {
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_down_sync(kFull, x, off);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  int total = 0;
-  if (threadIdx.x == 0)
-    for (int i = 0; i < (blockDim.x + 31) / 32; ++i) total += scratch[i];
-  return total;                   // valid in thread 0 only
-}
-
 // The threads that work on one row: a whole CTA or one warp.
 struct CtaGroup {
   __device__ int rank() const { return threadIdx.x; }
@@ -85,55 +90,173 @@ struct WarpGroup {
 };
 
 // Stage 1: per (row v, word w), bit b is candidate column c = 32 w + b.
-__global__ void __launch_bounds__(kThreads) slot_planes_kernel(
-    const uint32_t* __restrict__ have, int64_t w_full,
+constexpr int kPlaneWarps = 8;             // 32-receiver blocks a CTA
+constexpr int kPlaneThreads = kPlaneWarps * 32;
+constexpr int kCountBits = 0x3fffffff;     // partial: need count | sup << 30
+constexpr int kPlaneGroups = 65535;        // receiver groups: grid.y's limit
+constexpr int kPlaneWords = 8;             // output words a CTA (W if less)
+
+// A ticket a group of 256 receivers: static device memory starts at 0,
+// and the last CTA of a group to take one puts it back to 0.  One array
+// a device, so two slot_planes launches on one device must not overlap
+// (the engine launches on one stream, one slot after another).
+__device__ int plane_tickets[kPlaneGroups];
+
+// Row `lane` of the transpose of the 32 x 32 bit matrix whose row l is
+// lane l's x: bit l of the result is bit `lane` of lane l's x.  Five
+// butterfly stages swap off-diagonal blocks of 16, 8, 4, 2 and 1 bits.
+__device__ __forceinline__ uint32_t swap_blocks(uint32_t x, int lane, int j,
+                                                uint32_t m) {
+  const uint32_t y = __shfl_xor_sync(kFull, x, j);
+  return (lane & j) ? ((x & ~m) | ((y >> j) & m))
+                    : ((x & m) | ((y << j) & ~m));
+}
+
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+  x = swap_blocks(x, lane, 16, 0x0000ffffu);
+  x = swap_blocks(x, lane, 8, 0x00ff00ffu);
+  x = swap_blocks(x, lane, 4, 0x0f0f0f0fu);
+  x = swap_blocks(x, lane, 2, 0x33333333u);
+  return swap_blocks(x, lane, 1, 0x55555555u);
+}
+
+// Grid (W / WB, ceil(n / 256)): CTA (x, y) builds words [WB x, WB x + WB)
+// of receivers [256 y, 256 y + 256).
+template <int WB>
+__global__ void __launch_bounds__(kPlaneThreads) slot_planes_kernel(
+    const uint32_t* __restrict__ have_t, int64_t n_wp,
     const int32_t* __restrict__ cand, const int32_t* __restrict__ owner,
     const bool* __restrict__ allowed, const bool* __restrict__ recv_ok,
-    int64_t m_cnt, int64_t w_words, int nonowner, int ungated,
+    int64_t n, int64_t m_cnt, int64_t w_words, int nonowner, int ungated,
     uint32_t* __restrict__ plane_a, uint32_t* __restrict__ plane_b,
     uint32_t* __restrict__ need, int32_t* __restrict__ need_cnt,
-    bool* __restrict__ sup_any) {
-  __shared__ int scratch[2][kThreads / 32];
-  const int64_t v = blockIdx.x;
-  const uint32_t* hrow = have + v * w_full;
-  const bool rok = recv_ok[v];
+    bool* __restrict__ sup_any, int32_t* __restrict__ partial) {
+  constexpr int kCols = 32 * WB;           // candidates a CTA
+  constexpr int kStride = WB | 1;          // staged words a row (odd: no
+                                           // bank conflict)
+  __shared__ uint32_t hv_s[kPlaneWarps][kCols];      // [block][candidate]
+  __shared__ int32_t own_s[kCols];                   // owner, -1 for pad
+  __shared__ uint8_t allow_s[kCols];
+  __shared__ uint32_t out_s[kPlaneWarps][3][32 * kStride];
+  __shared__ int last_s;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * WB;
+  const int64_t rb0 = static_cast<int64_t>(blockIdx.y) * kPlaneWarps;
+
+  // 1. A thread a candidate: its metadata, and the sector of its have_t
+  // row that holds this CTA's receivers (rb0 + 8 <= n_wp).
+  if (tid < kCols) {
+    const int64_t c = w0 * 32 + tid;
+    uint4 lo = make_uint4(0u, 0u, 0u, 0u);
+    uint4 hi = lo;
+    int32_t ow = -1;
+    bool al = false;
+    if (c < m_cnt) {
+      const uint4* src = reinterpret_cast<const uint4*>(
+          have_t + static_cast<int64_t>(cand[c]) * n_wp + rb0);
+      lo = src[0];
+      hi = src[1];
+      ow = owner[c];
+      al = allowed[c];
+    }
+    own_s[tid] = ow;
+    allow_s[tid] = al;
+    hv_s[0][tid] = lo.x;
+    hv_s[1][tid] = lo.y;
+    hv_s[2][tid] = lo.z;
+    hv_s[3][tid] = lo.w;
+    hv_s[4][tid] = hi.x;
+    hv_s[5][tid] = hi.y;
+    hv_s[6][tid] = hi.z;
+    hv_s[7][tid] = hi.w;
+  }
+  __syncthreads();
+
+  // 2. A warp a receiver block rb: lane r is receiver v = 32 rb + r.
+  const int64_t rb = rb0 + warp;
+  const int64_t v = rb * 32 + lane;
+  const bool row_ok = v < n;
+  const bool rok = row_ok && recv_ok[v];
   int cnt_need = 0;
   int cnt_sup = 0;
-  for (int64_t w = threadIdx.x; w < w_words; w += blockDim.x) {
-    uint32_t hv = 0, own = 0, allow = 0, valid = 0;
-    for (int b = 0; b < 32; ++b) {
-      const int64_t c = w * 32 + b;
-      if (c >= m_cnt) break;
-      const uint32_t bit = 1u << b;
-      const int32_t cc = cand[c];
-      valid |= bit;
-      if ((hrow[cc >> 5] >> (cc & 31)) & 1u) hv |= bit;
-      if (owner[c] == v) {
-        own |= bit;
-        if (allowed[c]) allow |= bit;
+  if (rb * 32 < n) {                       // warp-uniform
+    uint32_t* st_a = out_s[warp][0];
+    uint32_t* st_n = out_s[warp][1];
+    uint32_t* st_b = out_s[warp][2];
+#pragma unroll
+    for (int wl = 0; wl < WB; ++wl) {
+      const int cl = wl * 32 + lane;
+      const bool valid = (w0 + wl) * 32 + lane < m_cnt;
+      const uint32_t hv = transpose32(hv_s[warp][cl], lane);
+      const uint32_t vmask = __ballot_sync(kFull, valid);
+      const uint32_t alw = __ballot_sync(kFull, allow_s[cl] != 0);
+      // owner cells: candidate j's owner is receiver ownr of this block
+      const int32_t ow = own_s[cl];
+      const int ownr = (ow >= 0 && (ow >> 5) == rb) ? (ow & 31) : -1;
+      uint32_t own = 0;
+      for (uint32_t hits = __ballot_sync(kFull, ownr >= 0); hits;
+           hits &= hits - 1) {
+        const int j = __ffs(hits) - 1;
+        if (__shfl_sync(kFull, ownr, j) == lane) own |= 1u << j;
       }
+      // eligible_supply's owner fix-up: the owner cell of a column serves
+      // only while its window is open
+      const uint32_t sup = ungated ? hv : ((hv & ~own) | (hv & own & alw));
+      const uint32_t nd = rok ? (~hv & vmask) : 0u;
+      if (row_ok) {
+        cnt_need += __popc(nd);
+        cnt_sup += __popc(sup);
+      }
+      st_a[lane * kStride + wl] = nonowner ? (sup & ~own) : sup;
+      st_n[lane * kStride + wl] = nd;
+      st_b[lane * kStride + wl] = sup & own;
     }
-    // eligible_supply's owner fix-up: the owner cell of a column serves
-    // only while its window is open
-    const uint32_t sup = ungated ? hv : ((hv & ~own) | (hv & own & allow));
-    const uint32_t nd = rok ? (~hv & valid) : 0u;
-    const int64_t o = v * w_words + w;
-    if (nonowner) {
-      plane_a[o] = sup & ~own;
-      plane_b[o] = sup & own;
-    } else {
-      plane_a[o] = sup;
+    __syncwarp();
+    // the block's rows, WB contiguous words each
+    const int rows = static_cast<int>(n - rb * 32 < 32 ? n - rb * 32 : 32);
+    for (int i = lane; i < rows * WB; i += 32) {
+      const int r = i / WB;
+      const int wl = i % WB;
+      const int64_t o = (rb * 32 + r) * w_words + w0 + wl;
+      plane_a[o] = st_a[r * kStride + wl];
+      need[o] = st_n[r * kStride + wl];
+      if (nonowner) plane_b[o] = st_b[r * kStride + wl];
     }
-    need[o] = nd;
-    cnt_need += __popc(nd);
-    cnt_sup += __popc(sup);
   }
-  const int total_need = block_sum(cnt_need, scratch[0]);
-  const int total_sup = block_sum(cnt_sup, scratch[1]);
-  if (threadIdx.x == 0) {
-    need_cnt[v] = total_need;
-    sup_any[v] = total_sup > 0;
+
+  // 3. The counts.  One CTA a row: write them.  Else each CTA leaves its
+  // part, and the last CTA of the receiver group to take a ticket sums
+  // the parts and puts the ticket back to 0.
+  if (gridDim.x == 1) {
+    if (row_ok) {
+      need_cnt[v] = cnt_need;
+      sup_any[v] = cnt_sup > 0;
+    }
+    return;
   }
+  if (row_ok)
+    partial[blockIdx.x * n + v] = cnt_need | (cnt_sup > 0 ? 1 << 30 : 0);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last_s = atomicAdd(&plane_tickets[blockIdx.y], 1) ==
+             static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (!last_s) return;
+  if (row_ok) {
+    int total = 0;
+    int any = 0;
+    for (unsigned k = 0; k < gridDim.x; ++k) {
+      const int p = __ldcg(partial + k * n + v);
+      total += p & kCountBits;
+      any |= p >> 30;
+    }
+    need_cnt[v] = total;
+    sup_any[v] = any != 0;
+  }
+  if (tid == 0) plane_tickets[blockIdx.y] = 0;
 }
 
 // ---------------------------------------------------------------------
@@ -762,22 +885,39 @@ cudaError_t round_grid(int64_t n, int* grid) {
 
 }  // namespace
 
-cudaError_t launch_slot_planes(const int32_t* have, int64_t n,
-                               int64_t w_full, const int32_t* cand,
-                               const int32_t* owner, const bool* allowed,
-                               const bool* recv_ok, int64_t m_cnt,
-                               int64_t m_pad, int nonowner, int ungated,
+cudaError_t launch_slot_planes(const int32_t* have_t, int64_t n_wp,
+                               const int32_t* cand, const int32_t* owner,
+                               const bool* allowed, const bool* recv_ok,
+                               int64_t n, int64_t m_cnt, int64_t m_pad,
+                               int nonowner, int ungated,
                                int32_t* plane_a, int32_t* plane_b,
                                int32_t* need, int32_t* need_cnt,
-                               bool* sup_any, cudaStream_t stream) {
+                               bool* sup_any, int32_t* partial,
+                               cudaStream_t stream) {
   if (n == 0) return cudaSuccess;
-  slot_planes_kernel<<<static_cast<unsigned>(n), kThreads, 0, stream>>>(
-      reinterpret_cast<const uint32_t*>(have), w_full, cand, owner, allowed,
-      recv_ok, m_cnt, m_pad / 32, nonowner, ungated,
-      reinterpret_cast<uint32_t*>(plane_a),
-      reinterpret_cast<uint32_t*>(plane_b), reinterpret_cast<uint32_t*>(need),
-      need_cnt, sup_any);
-  return cudaGetLastError();
+  const int64_t w_words = m_pad / 32;
+  const int64_t groups = (n + kPlaneThreads - 1) / kPlaneThreads;
+  const int64_t wb = w_words < kPlaneWords ? w_words : kPlaneWords;
+  if (groups > kPlaneGroups || wb < 1 || w_words % wb)
+    return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(w_words / wb),
+                  static_cast<unsigned>(groups));
+  auto go = [&](auto kernel) {
+    kernel<<<grid, kPlaneThreads, 0, stream>>>(
+        reinterpret_cast<const uint32_t*>(have_t), n_wp, cand, owner,
+        allowed, recv_ok, n, m_cnt, w_words, nonowner, ungated,
+        reinterpret_cast<uint32_t*>(plane_a),
+        reinterpret_cast<uint32_t*>(plane_b),
+        reinterpret_cast<uint32_t*>(need), need_cnt, sup_any, partial);
+    return cudaGetLastError();
+  };
+  switch (wb) {
+    case 1: return go(slot_planes_kernel<1>);
+    case 2: return go(slot_planes_kernel<2>);
+    case 4: return go(slot_planes_kernel<4>);
+    case 8: return go(slot_planes_kernel<8>);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t launch_overlap_rank(const int32_t* plane_a,

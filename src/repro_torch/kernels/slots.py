@@ -6,12 +6,15 @@ is behind any of it.  torch has no popcount op, so the plain versions
 here spend a dozen SWAR operations on every popcount, and a slot goes
 to two hand kernels in ``csrc/slots.cu`` instead:
 
-* ``slot_planes``    — stage 1: gather the candidate columns out of the
-                       packed inventory in rarest-first bit order,
-                       apply the owner-window gate, and build the
-                       supply tier planes, the need plane, the need
-                       counts and ``sup_any``, without the (n, m_pad)
-                       bit matrix the JAX code materialises;
+* ``slot_planes``    — stage 1: read the candidates' rows of the
+                       chunk-major inventory ``have_t`` (one row a
+                       chunk, bit v for peer v), turn each 32 x 32 bit
+                       tile of (candidate, receiver) around into
+                       receiver rows in rarest-first bit order, apply
+                       the owner-window gate, and build the supply tier
+                       planes, the need plane, the need counts and
+                       ``sup_any``, without the (n, m_pad) bit matrix
+                       the JAX code materialises;
 * ``slot_rounds``    — every grant round of the slot in one persistent
                        cooperative launch (the JAX package's
                        ``lax.while_loop``): feasibility, scores, GFF
@@ -48,6 +51,8 @@ from . import _build
 
 _MASK32 = 0xFFFFFFFF
 _SB = 16                        # superblocks a row when W divides by 16
+PLANE_WORDS = 8                 # output words of a row a slot_planes CTA
+                                # builds: one 32-byte sector of each plane
 
 
 # ----------------------------------------------------------------------
@@ -167,23 +172,26 @@ def _first_bits(rows: torch.Tensor, want: torch.Tensor, t_cap: int):
 # plain versions
 # ----------------------------------------------------------------------
 
-def slot_planes_plain(have, cand, owner, allowed, recv_ok, m_cnt: int, *,
+def slot_planes_plain(have_t, cand, owner, allowed, recv_ok, m_cnt: int, *,
                       nonowner: bool, ungated: bool):
-    """Stage 1 of ``_slot_rounds`` as the JAX package writes it.
+    """Stage 1 of ``_slot_rounds`` as the JAX package writes it, over
+    the chunk-major inventory.
 
-    have (n, w_full) int32 words; cand, owner (m_pad,) int32 (the
-    candidate chunk ids in rarest-first order, their owners); allowed
-    (m_pad,) bool (the owner window is open); recv_ok (n,) bool; the
-    first ``m_cnt`` candidates are real, the rest pad.  Returns
-    ``(plane_a, plane_b, need, need_cnt, sup_any)``: plane_a is the
-    supply plane (``nonowner``: its non-owner tier, plane_b its owner
-    tier; else plane_b is None), need the receivers' missing candidate
-    bits, need_cnt (n,) int32 and sup_any (n,) bool.
+    have_t (universe, n_wp) int32 words, bit ``v & 31`` of word ``v >>
+    5`` of row c set when peer v holds chunk c (bits of peers at or
+    above n are ignored); cand, owner (m_pad,) int32 (the candidate
+    chunk ids in rarest-first order, their owners); allowed (m_pad,)
+    bool (the owner window is open); recv_ok (n,) bool; the first
+    ``m_cnt`` candidates are real, the rest pad.  Returns ``(plane_a,
+    plane_b, need, need_cnt, sup_any)``: plane_a is the supply plane
+    (``nonowner``: its non-owner tier, plane_b its owner tier; else
+    plane_b is None), need the receivers' missing candidate bits,
+    need_cnt (n,) int32 and sup_any (n,) bool.
     """
-    n = have.shape[0]
+    n = recv_ok.shape[0]
     m_pad = cand.shape[0]
     w_words = m_pad // 32
-    dev = have.device
+    dev = have_t.device
     shifts = torch.arange(32, dtype=torch.int64, device=dev)
     cidx = torch.arange(m_pad, device=dev)
     valid = cidx < m_cnt
@@ -191,8 +199,10 @@ def slot_planes_plain(have, cand, owner, allowed, recv_ok, m_cnt: int, *,
     col_b = cidx & 31
     one = torch.ones((), dtype=torch.int64, device=dev)
     col_bit = torch.where(valid, one << col_b, 0)
-    cand_l = cand.long()
-    bits = (_u32(have[:, cand_l >> 5]) >> (cand_l & 31)[None, :]) & 1
+    # the candidates' rows, unpacked to (m_pad, n) bits and turned
+    # around: from here on the JAX package's stage 1
+    rows = (_u32(have_t[cand.long()])[:, :, None] >> shifts) & 1
+    bits = rows.reshape(m_pad, -1)[:, :n].T
     bits = torch.where(valid[None, :], bits, 0)
     hv_w = (bits.reshape(n, w_words, 32) << shifts).sum(2)
     valid_w = (valid.reshape(w_words, 32).long() << shifts).sum(1)
@@ -453,36 +463,57 @@ def _check(name, tensors: dict, dtype) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def slot_planes(have, cand, owner, allowed, recv_ok, m_cnt: int, *,
+def slot_planes(have_t, cand, owner, allowed, recv_ok, m_cnt: int, *,
                 nonowner: bool, ungated: bool, impl: str = "cuda"):
-    """:func:`slot_planes_plain` through the ``slot_planes`` kernel."""
-    if impl == "torch" or have.device.type == "cpu":
-        return slot_planes_plain(have, cand, owner, allowed, recv_ok,
+    """:func:`slot_planes_plain` through the ``slot_planes`` kernel.
+
+    The kernel wants ``have_t``'s row length ``n_wp`` a multiple of 8
+    words (``jit_engine._n_wp``) and the tensor 16-byte aligned.  A CTA
+    builds ``min(PLANE_WORDS, W)`` output words of 256 receiver rows, so
+    W must be a power of two below ``PLANE_WORDS`` or a multiple of it.
+    Rows whose words span CTAs merge their counts through tickets that
+    the kernel keeps in static device memory, one array a device: calls
+    on one device must not overlap in time (one stream, as the engine
+    makes them)."""
+    if impl == "torch" or have_t.device.type == "cpu":
+        return slot_planes_plain(have_t, cand, owner, allowed, recv_ok,
                                  m_cnt, nonowner=nonowner, ungated=ungated)
     if impl != "cuda":
         raise ValueError(f"unknown slot_planes impl {impl!r}")
-    _build.require_cuda("slot_planes", have, cand, owner, allowed, recv_ok)
-    _check("slot_planes", {"have": have, "cand": cand, "owner": owner},
+    _build.require_cuda("slot_planes", have_t, cand, owner, allowed,
+                        recv_ok)
+    _check("slot_planes", {"have_t": have_t, "cand": cand, "owner": owner},
            torch.int32)
     _check("slot_planes", {"allowed": allowed, "recv_ok": recv_ok},
            torch.bool)
-    n, m_pad = have.shape[0], cand.shape[0]
-    if (have.dim() != 2 or m_pad % 32 or owner.shape != (m_pad,)
-            or allowed.shape != (m_pad,) or recv_ok.shape != (n,)
+    n, m_pad = recv_ok.shape[0], cand.shape[0]
+    n_wp = have_t.shape[1] if have_t.dim() == 2 else -1
+    if (n_wp % 8 or n_wp * 32 < n or have_t.data_ptr() % 16
+            or m_pad % 32 or owner.shape != (m_pad,)
+            or allowed.shape != (m_pad,) or recv_ok.dim() != 1
             or not 0 <= m_cnt <= m_pad):
-        raise ValueError("slot_planes: want have (n, w_full), cand, owner "
-                         "and allowed (m_pad,) with m_pad % 32 == 0, "
-                         "recv_ok (n,) and 0 <= m_cnt <= m_pad")
+        raise ValueError("slot_planes: want have_t (universe, n_wp), "
+                         "16-byte aligned, with n_wp a multiple of 8 and "
+                         "n_wp * 32 >= n; cand, owner and allowed (m_pad,) "
+                         "with m_pad % 32 == 0, recv_ok (n,) and 0 <= m_cnt "
+                         "<= m_pad")
     w_words = m_pad // 32
-    kw = dict(dtype=torch.int32, device=have.device)
+    dev = have_t.device
+    wb = min(PLANE_WORDS, w_words)         # the kernel's words a CTA
+    if wb < 1 or w_words % wb or wb & (wb - 1):
+        raise ValueError(f"slot_planes: W = {w_words} words must be a power "
+                         f"of two below {PLANE_WORDS} or a multiple of it")
+    kw = dict(dtype=torch.int32, device=dev)
     plane_a = torch.empty((n, w_words), **kw)
     plane_b = torch.empty((n, w_words) if nonowner else (0,), **kw)
     need = torch.empty((n, w_words), **kw)
     need_cnt = torch.empty((n,), **kw)
-    sup_any = torch.empty((n,), dtype=torch.bool, device=have.device)
-    _build.extension().slot_planes(have, cand, owner, allowed, recv_ok,
-                                   m_cnt, nonowner, ungated, plane_a,
-                                   plane_b, need, need_cnt, sup_any)
+    sup_any = torch.empty((n,), dtype=torch.bool, device=dev)
+    chunks = w_words // wb
+    partial = torch.empty((chunks if chunks > 1 else 0, n), **kw)
+    _build.extension().slot_planes(
+        have_t, cand, owner, allowed, recv_ok, m_cnt, nonowner, ungated,
+        plane_a, plane_b, need, need_cnt, sup_any, partial)
     _build.LAUNCHES["slot_planes"] += 1
     return (plane_a, plane_b if nonowner else None, need, need_cnt,
             sup_any)

@@ -10,11 +10,15 @@ whole rounds and two-round sessions on both time engines.  With its own
 bases (a CPU ``torch.Generator`` seeded by the slot's seed) the port is
 held to the equivalence suite's rules instead: legality replay, Eq. 1,
 three-way aggregate parity and the determinism twins
-(tests/test_scheduler_equivalence.py).  The ``slot_rounds`` kernel's
-sender phase walks each sender's in-neighbor list where the plain loop
-sorts globally (``slots.grouped_take``); a numpy model of that walk
-here is held equal to the sort on every recorded round and on
-hypothesis-drawn rounds.  Tests marked ``cuda`` hold the slot kernels
+(tests/test_scheduler_equivalence.py).  The port keeps its device
+inventory chunk-major (one row a chunk) where the JAX package keeps it
+row-major, so JAX's words are turned around exactly (``_chunk_major``)
+wherever they are fed to the port.  The ``slot_planes`` kernel's tile
+transpose, owner ballots, split and count merge, and the
+``slot_rounds`` kernel's sender phase (which walks each sender's
+in-neighbor list where the plain loop sorts globally,
+``slots.grouped_take``), have numpy models here held equal to the plain
+versions on recorded and on hypothesis-drawn inputs.  Tests marked ``cuda`` hold the slot kernels
 to their plain versions and the card's ``_slot_rounds`` to the CPU's
 and to the plain loop on the card; they skip without a GPU.
 """
@@ -61,6 +65,20 @@ VARIANTS = {"default": {},
 WARMUP_ONLY = {"default": False, "owner_tier_off": True, "ungated": True}
 
 
+def _load_smoke():
+    """``chip_smoke.py`` from the repo root, whose ``check_small_slots``
+    and ``slot_case`` are the one builder of the slot kernels'
+    cases."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SMOKE = _load_smoke()
+
+
 def jax_bases(seed, n, d_pad):
     """The three noise bases as repro/core/jit_engine.py:398-402 draws
     them from the slot's seed, as the port's int32 words."""
@@ -98,6 +116,15 @@ def _i32(a) -> torch.Tensor:
 
 def _u32(t: torch.Tensor) -> np.ndarray:
     return t.numpy().astype(np.int64).astype(np.uint32)
+
+
+def _chunk_major(words, n: int, rows: int | None = None) -> np.ndarray:
+    """The JAX package's row-major (n, w) uint32 inventory words as the
+    port's chunk-major (32 w, _n_wp(n)) words (the first ``rows`` rows),
+    exactly: unpacked to bits, transposed, packed again."""
+    words = np.ascontiguousarray(np.asarray(words, dtype=np.uint32))
+    bits = np.unpackbits(words.view(np.uint8), axis=1, bitorder="little")
+    return tje._pack_words(bits.T[:rows], tje._n_wp(n))
 
 
 def _words(rng, shape):
@@ -165,30 +192,94 @@ def _sims(n, k, **kw):
     return JSim(JConfig(**cfg)), TSim(TConfig(**cfg), device="cpu")
 
 
+def _scattered(operands, shape) -> np.ndarray:
+    """Zero words of ``shape`` with scatter operands (rows, word column,
+    bit value) added in, as the engine's ``_scatter_bits`` adds them."""
+    rows, wcol, vals = (np.asarray(a) for a in operands)
+    out = np.zeros(shape, np.uint64)
+    np.add.at(out, (rows.astype(np.int64), wcol.astype(np.int64)),
+              vals.view(np.uint32).astype(np.uint64))
+    return out.astype(np.uint32)
+
+
 @pytest.mark.parametrize("n,k", [(20, 16), (7, 40), (5, 64)])
 def test_host_helpers_are_exact(n, k):
     """``_pack_words``, ``_diag_words``, ``_log_scatter``,
-    ``_neighbor_lists`` and ``_sync_have_dev`` after the spray."""
+    ``_neighbor_lists`` and ``_sync_have_dev`` after the spray; the JAX
+    package's row-major words turned chunk-major (``_chunk_major``)."""
     js, ts = _sims(n, k)
     js._spray()
     ts._spray()
     jst, tst = js.state, ts.state
-    w_full = -(-jst.have.shape[1] // 32)
+    universe = jst.have.shape[1]
+    w_full = -(-universe // 32)
+    n_wp = tje._n_wp(n)
     np.testing.assert_array_equal(tje._pack_words(tst.have, w_full),
                                   jje._pack_words(jst.have, w_full))
-    np.testing.assert_array_equal(tje._diag_words(tst, w_full),
-                                  jje._diag_words(jst, w_full))
+    np.testing.assert_array_equal(
+        _u32(tje._diag_words(tst, "cpu")),
+        _chunk_major(jje._diag_words(jst, w_full), n, universe))
     nb = len(jst.log.receivers)
     for pos in (0, nb):
-        for a, b in zip(jje._log_scatter(jst, pos, nb),
-                        tje._log_scatter(tst, pos, nb)):
-            np.testing.assert_array_equal(
-                b.numpy().view(np.asarray(a).dtype), np.asarray(a))
+        j_ops = jje._log_scatter(jst, pos, nb)
+        t_ops = tje._log_scatter(tst, pos, nb)
+        assert [a.shape for a in t_ops] == [np.asarray(a).shape
+                                            for a in j_ops]
+        np.testing.assert_array_equal(
+            _scattered(t_ops, (universe, n_wp)),
+            _chunk_major(_scattered(j_ops, (n, w_full)), n, universe))
     np.testing.assert_array_equal(tje._neighbor_lists(tst).numpy(),
                                   np.asarray(jje._neighbor_lists(jst)))
     want = np.asarray(jje._sync_have_dev(jst))
-    np.testing.assert_array_equal(_u32(tje._sync_have_dev(tst)), want)
+    np.testing.assert_array_equal(_u32(tje._sync_have_dev(tst)),
+                                  _chunk_major(want, n, universe))
     np.testing.assert_array_equal(want, jje._pack_words(jst.have, w_full))
+
+
+def _packbits_t(have: np.ndarray) -> np.ndarray:
+    """``np.packbits`` of ``have.T`` into (universe, _n_wp(n)) uint32."""
+    n = have.shape[0]
+    p = np.packbits(have.T, axis=1, bitorder="little")
+    buf = np.zeros((have.shape[1], tje._n_wp(n) * 4), np.uint8)
+    buf[:, :p.shape[1]] = p
+    return buf.view("<u4").astype(np.uint32)
+
+
+@pytest.mark.parametrize("n,k", [(37, 5), (50, 6), (7, 40), (33, 8)])
+def test_chunk_major_inventory_is_packbits_of_have_t(n, k):
+    """The chunk-major helpers against ``np.packbits`` of ``have.T`` at n
+    not a multiple of 32: the owner diagonal before the spray, the
+    operands of the spray's log, ``_sync_have_dev`` built before the
+    spray and replayed after it, and the full repack of a swapped
+    ``have``; the bits of peers at or above n stay zero."""
+    sim = TSim(TConfig(n=n, chunks_per_update=k, min_degree=min(4, n - 2),
+                       s_max=500, seed=5, scheduler_impl="jit"),
+               device="cpu")
+    st = sim.state
+    assert tje._n_wp(n) % 8 == 0 and tje._n_wp(n) * 32 >= n
+    np.testing.assert_array_equal(_u32(tje._diag_words(st, "cpu")),
+                                  _packbits_t(st.have))
+    np.testing.assert_array_equal(_u32(tje._sync_have_dev(st)),
+                                  _packbits_t(st.have))
+    before = st.have.copy()
+    nb0 = len(st.log.receivers)
+    sim._spray()
+    nb = len(st.log.receivers)
+    assert nb > nb0
+    np.testing.assert_array_equal(
+        _u32(tje._diag_words(st, "cpu"))
+        | _scattered(tje._log_scatter(st, nb0, nb),
+                     _packbits_t(before).shape),
+        _packbits_t(st.have))
+    got = _u32(tje._sync_have_dev(st))
+    np.testing.assert_array_equal(got, _packbits_t(st.have))
+    pad = np.arange(tje._n_wp(n) * 32) >= n
+    bits = np.unpackbits(got.view(np.uint8), axis=1, bitorder="little")
+    assert not bits[:, pad].any()
+    st.have = st.have.copy()                  # a swapped identity
+    st.have[0, -1] = True
+    np.testing.assert_array_equal(_u32(tje._sync_have_dev(st)),
+                                  _packbits_t(st.have))
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +325,8 @@ def _replay(static, args, device, impl="cuda"):
     (have, cand, owner, allowed, m, recv_ok, nbr, rem_up, rem_down,
      batch_cap, tau, seed) = args
     dev = torch.device(device)
-    t = [_i32(a).to(dev) for a in (have, cand, owner)]
+    have_t = _chunk_major(have, nbr.shape[0])
+    t = [_i32(a).to(dev) for a in (have_t, cand, owner)]
     out_snd, out_col, rounds = tje._slot_rounds(
         *static, *t, torch.from_numpy(np.array(allowed)).to(dev), int(m),
         torch.from_numpy(np.array(recv_ok)).to(dev), _i32(nbr).to(dev),
@@ -439,6 +531,137 @@ def test_group_walk_matches_the_global_sort_on_drawn_rounds(
                      recv_slots, rem_up)
 
 
+# ---------------------------------------------------------------------------
+# slot_planes' tiles: the butterfly transpose and the owner ballots
+# ---------------------------------------------------------------------------
+
+_LANE = np.arange(32)
+_BUTTERFLY = ((16, 0x0000FFFF), (8, 0x00FF00FF), (4, 0x0F0F0F0F),
+              (2, 0x33333333), (1, 0x55555555))
+
+
+def transpose32(x):
+    """``csrc/slots.cu::transpose32`` over the last axis (the 32 lanes
+    of a warp): five ``__shfl_xor_sync`` block swaps."""
+    x = x.astype(np.uint32)
+    for j, m in _BUTTERFLY:
+        m = np.uint32(m)
+        y = x[..., _LANE ^ j]
+        x = np.where((_LANE & j) != 0, (x & ~m) | ((y >> j) & m),
+                     (x & m) | ((y << j) & ~m))
+    return x
+
+
+def _ballot(pred):
+    """``__ballot_sync`` over the last axis: bit l set where lane l's
+    predicate holds."""
+    return (pred.astype(np.uint64) << _LANE.astype(np.uint64)).sum(
+        -1).astype(np.uint32)
+
+
+def planes_model(have_t, cand, owner, allowed, recv_ok, m_cnt, *,
+                 nonowner, ungated):
+    """``csrc/slots.cu::slot_planes_kernel`` in numpy, tile by tile: CTA
+    (x, y) builds ``wb = min(PLANE_WORDS, W)`` words (the launcher's
+    choice) of 256 receivers; warp rb of it loads, lane l, candidate
+    l's have_t word rb (zero for pad candidates),
+    turns the tile around with ``transpose32``, marks the owner cells of
+    the lanes whose owner lies in block rb (the ballot loop), and leaves
+    its rows' counts as partial words (need count | sup << 30) that the
+    ticket's last CTA sums."""
+    n = recv_ok.size
+    m_pad = cand.size
+    w = m_pad // 32
+    wb = min(slots.PLANE_WORDS, w)
+    n_rb = -(-n // 32)
+    valid = np.arange(m_pad) < m_cnt
+    x = np.where(valid[:, None], have_t[cand].view(np.uint32), 0)
+    tiles = x[:, :n_rb].T.reshape(n_rb, w, 32)         # (rb, word, lane)
+    hv = transpose32(tiles)                            # lane r: receiver r
+    vmask = _ballot(valid.reshape(w, 32))[None, :, None]
+    alw = _ballot((valid & allowed).reshape(w, 32))[None, :, None]
+    rb = np.arange(n_rb)[:, None, None]
+    ow = np.where(valid, owner, -1).reshape(1, w, 32)
+    ownr = np.where((ow >= 0) & (ow >> 5 == rb), ow & 31, -1)
+    own = np.zeros_like(hv)
+    for j in range(32):                                # the hits loop
+        r_i, w_i = np.nonzero(ownr[:, :, j] >= 0)
+        own[r_i, w_i, ownr[r_i, w_i, j]] |= np.uint32(1 << j)
+    sup = hv if ungated else (hv & ~own) | (hv & own & alw)
+    rok = np.concatenate([recv_ok, np.zeros(n_rb * 32 - n, bool)])
+    nd = np.where(rok.reshape(n_rb, 1, 32), ~hv & vmask, np.uint32(0))
+
+    def rows(t):                                       # (n, w) words
+        return t.transpose(0, 2, 1).reshape(n_rb * 32, w)[:n]
+    plane_a = rows(sup & ~own if nonowner else sup)
+    plane_b = rows(sup & own) if nonowner else None
+    cnt_n = np.bitwise_count(nd).reshape(n_rb, w // wb, wb, 32).sum(2)
+    cnt_s = np.bitwise_count(sup).reshape(n_rb, w // wb, wb, 32).sum(2)
+    part = cnt_n.astype(np.int64) | np.where(cnt_s > 0, 1 << 30, 0)
+    part = part.transpose(1, 0, 2).reshape(w // wb, n_rb * 32)[:, :n]
+    need_cnt = (part & 0x3FFFFFFF).sum(0)
+    sup_any = (part >> 30).any(0)
+    return plane_a, plane_b, rows(nd), need_cnt, sup_any
+
+
+def _hold_planes_model(host, m_cnt):
+    have_t, cand, owner, allowed, recv_ok = (t.numpy() for t in host)
+    layouts = 0
+    for nonowner in (True, False):
+        for ungated in (True, False):
+            kw = dict(nonowner=nonowner, ungated=ungated)
+            want = slots.slot_planes_plain(*host, m_cnt, **kw)
+            got = planes_model(have_t, cand, owner, allowed, recv_ok, m_cnt,
+                               **kw)
+            for g, w in zip(got[:3], want[:3]):
+                assert (g is None) == (w is None)
+                if w is not None:
+                    np.testing.assert_array_equal(g, _u32(w))
+            np.testing.assert_array_equal(got[3], want[3].numpy())
+            np.testing.assert_array_equal(got[4], want[4].numpy())
+            layouts += 1
+    return layouts
+
+
+def test_transpose32_is_the_ballot_transpose():
+    """The butterfly gives lane r the word that 32 ballots of bit r
+    give, on random tiles and on single bits."""
+    rng = np.random.default_rng(3)
+    single = (_LANE[None, :] + _LANE[:, None]) % 32   # one bit a lane
+    x = np.concatenate([_words(rng, (64, 32)),
+                        np.uint32(1) << single.astype(np.uint32)])
+    want = np.stack([_ballot((x >> np.uint32(r)) & 1) for r in range(32)],
+                    axis=-1)
+    np.testing.assert_array_equal(transpose32(x), want)
+
+
+@pytest.mark.parametrize("case", SMOKE.SLOT_CASES)
+def test_planes_model_matches_the_plain_version(case):
+    """The numpy model of ``slot_planes_kernel`` equal to
+    ``slot_planes_plain`` on ``chip_smoke.SLOT_CASES``' inputs (garbage
+    in the bits of peers at or above n, pad candidates with owner 0) in
+    every plane layout; the cases' W of 1, 2, 4, 8 and 256 words run
+    every width of CTA and rows whose counts span CTAs."""
+    host = SMOKE.slot_case(case, np.random.default_rng(case[0] * case[1]))
+    assert _hold_planes_model(host, case[2]) == 4
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2 ** 32 - 1), n=st.integers(1, 700),
+       w_log=st.integers(0, 5), fill=st.floats(0.0, 1.0))
+def test_planes_model_matches_the_plain_version_on_drawn_slots(
+        seed, n, w_log, fill):
+    """Drawn shapes: n up to 700 (partial receiver blocks and groups),
+    W from 1 to 32 words (1 to 8 words a CTA, 1 to 4 CTAs a row), any
+    count of real candidates (none to all)."""
+    m_pad = 32 << w_log
+    m_cnt = int(fill * m_pad)
+    w_full = max(-(-m_pad // 32), 1) + 3
+    host = SMOKE.slot_case((n, m_pad, m_cnt, w_full),
+                           np.random.default_rng(seed))
+    _hold_planes_model(host, m_cnt)
+
+
 def test_in_neighbor_lists_follow_the_overlay():
     """The neighbor lists and their transpose are cached on the state
     and rebuilt when ``state.adj`` is replaced; the transpose assumes no
@@ -583,19 +806,6 @@ def test_phase_timers_and_counts():
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-
-def _load_smoke():
-    """``chip_smoke.py`` from the repo root, whose ``check_small_slots``
-    is the one builder of the slot kernels' cases."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-SMOKE = _load_smoke()
-
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SMOKE.SLOT_CASES)
