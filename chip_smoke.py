@@ -225,11 +225,41 @@ and imports nothing of the JAX package:
       and wall_s, the staleness histogram and drops equal the JAX
       package's (242.6 s; 197.7 s, {1: 94}; 213.5 s, {1: 52}; 0
       dropped); host and fair-share seconds;
-12. prints one ``{"slot_engine": {...}}`` line with the slot engine's
+12. the pod axis (``repro_torch.dist.torrent``'s ring, the
+   expert-parallel MoE; NCCL cannot run two ranks on one card):
+   a. ``ring_local``: the ring's rank body with P virtual ranks on the
+      card (``LocalTransport``, a send a device copy) over seeded f32
+      rows at qwen3-1.7b's D (1,720,574,976) with P = 2 and
+      xlstm-350m's (565,215,232) with P = 4, n_blocks 4 and 16,
+      compressed and not, the launch counters and P2P counts set to 0
+      before each ring: every virtual rank's aggregate equal bit for
+      bit to every other's and to ``aggregate_blocks`` on the same
+      rows, (P - 1) x n_blocks (+ P - 1) sends and receives a rank,
+      ``chunk_quantize`` once a rank, ``chunk_dequantize`` once a
+      stage, ``fedavg_reduce`` once a rank; seconds, peak memory and
+      bytes on the wire a rank; then one-rank gloo and NCCL groups
+      refuse a CUDA and a CPU tensor;
+   b. ``moe_ep_local``: one olmoe-1b-7b MoE layer at full width (64
+      experts of 1024, top 8, bf16, capacity factor 1.25) on 8192
+      seeded tokens: the bf16 sum of 4 and of 8 virtual model ranks'
+      ``_moe_local_block`` outputs within 1e-2 of ``_moe_ffn``; both
+      timed; then a checkpoint's recomputation on the card, which
+      autograd runs on a device thread of its own, sees the forward's
+      ``axis_rules`` binding (``layers.checkpointed``);
+   c. ``ring_nccl``: with two or more GPUs, min(count, 4) NCCL ranks
+      (one process a GPU) run ``torrent_fedavg(mesh=)`` on a (P, 2^28)
+      f32 update, compressed and not (equal to the single-device path
+      bit for bit on every rank, the P2P counts) and two qwen3-1.7b
+      pod-parallel steps (ranks equal; rank 0 against the single-device
+      path: losses, params and the f32 master, m and v equal bit for
+      bit); with one GPU
+      it prints ``{"phase": "ring_nccl", "ran": false, "gpus": 1}``;
+13. prints one ``{"slot_engine": {...}}`` line with the slot engine's
    times, one ``{"event_paths": {...}}`` line with those times, one
-   ``{"fl_paths": {...}}`` line with the FL phase's rows and times, one
-   ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+   ``{"fl_paths": {...}}`` line with the FL phase's rows and times,
+   ``{"ring_local": ...}``, ``{"moe_ep_local": ...}`` and
+   ``{"ring_nccl": ...}`` lines, one ``{"kernels": [...]}`` line and,
+   last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line is printed.  With
 no CUDA device, or outside a checkout of the repository, it exits
@@ -2870,7 +2900,9 @@ def run_slot_engine_paths(device=None) -> tuple[dict, list[dict]]:
 # is its --quick n 60 point, 0.9802).  Each is held at its committed
 # rounding: seconds to 0.1, shares to 4 places, overheads to 2.
 EVENT_TOL = 1e-9                # fair-share on the card vs plain, rtol/atol
-EVENT_WARM_NS = (100, 200)      # warm-up share rounds run
+# warm-up share rounds run (n 200, about 115 s of host time, and n 500
+# are cut for the script's time; their references stay)
+EVENT_WARM_NS = (100,)
 WARM_SHARE_REF = {100: (242.4, 2540.4, 0.0954),     # t_warm_s, t_round_s,
                   200: (544.4, 5337.4, 0.1020),     # warmup_share_s
                   500: (1370.3, 13165.3, 0.1041)}
@@ -3748,6 +3780,468 @@ def run_fl_paths(device=None) -> dict:
 
 
 # ----------------------------------------------------------------------
+# the multi-rank layer: the torrent ring, the expert-parallel MoE
+# ----------------------------------------------------------------------
+
+# (label, D, P, n_blocks): the ring at qwen3-1.7b's and xlstm-350m's
+# update widths, each compressed and not
+RING_LOCAL_CASES = (("qwen3-1.7b", FULL_D, 2, 4), ("qwen3-1.7b", FULL_D, 2, 16),
+                    ("xlstm-350m", SWARM_D, 4, 4),
+                    ("xlstm-350m", SWARM_D, 4, 16))
+MOE_EP_TOKENS = 8192            # one of _moe_ffn's token blocks
+MOE_EP_RANKS = (4, 8)           # virtual model ranks
+MOE_EP_TOL = 1e-2               # bf16
+NCCL_MAX_RANKS = 4
+RING_NCCL_D = 1 << 28           # torrent_fedavg's row on each NCCL rank
+RING_NCCL_STEPS = 2
+RING_NCCL_TIMEOUT = 420       # seconds for all ranks
+
+
+def _ring_weights(p: int, device):
+    """FedAvg weights 1..P, pod 2 masked where P > 2."""
+    import torch
+    w = torch.arange(1, p + 1, dtype=torch.float32, device=device)
+    a = torch.ones(p, device=device)
+    if p > 2:
+        a[2] = 0.0
+    return w, a
+
+
+def ring_local_case(label: str, d: int, p: int, nb: int, comp: bool,
+                    device="cuda") -> dict:
+    """P virtual pod ranks of the torrent ring on this device
+    (``LocalTransport``) over seeded (P, D) f32 rows: every rank's
+    aggregate equal bit for bit to every other's and to
+    ``aggregate_blocks`` on the same rows; (P - 1) x n_blocks (+ P - 1)
+    sends and receives a rank; ``chunk_quantize`` once a rank,
+    ``chunk_dequantize`` once a stage and ``fedavg_reduce`` once a rank
+    (counted from 0 around the ring).  Returns seconds, peak memory and
+    bytes on the wire."""
+    import torch
+
+    from repro_torch.dist import torrent
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.tree import flatten
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        free_cuda()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(d % 1000 + 10 * p + nb)
+    rows = torrent.alloc_blocks(p, d, nb, dev)
+    rows.view(p, -1)[:, :d].normal_(generator=gen)
+    w, a = _ring_weights(p, dev)
+    what = f"ring {label} P={p} n_blocks={nb} compress={comp}"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    torrent.reset_p2p()
+    reset_launches()
+    t0 = time.perf_counter()
+    aggs = torrent.ring_fedavg(torrent.LocalTransport(p), list(rows), w, a,
+                               compress=comp)
+    sync()
+    secs = time.perf_counter() - t0
+    launches, p2p = dict(LAUNCHES), dict(torrent.P2P)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    meta = (flatten(rows)[1], [(d,)], [torch.float32], d)
+    want = torrent.aggregate_blocks(rows, meta, w, a, compress=comp)
+    del rows
+    for i, agg in enumerate(aggs):
+        check(torch.equal(agg, aggs[0]),
+              f"{what}: virtual rank {i}'s aggregate differs from rank 0's")
+        check(torch.equal(agg[:d], want),
+              f"{what}: virtual rank {i}'s aggregate differs from "
+              "aggregate_blocks on the same rows")
+    del aggs, want
+    sends = (p - 1) * (nb + comp)
+    for i in range(p):
+        check(p2p.get(("send", i)) == sends and p2p.get(("recv", i)) == sends,
+              f"{what}: P2P {p2p}, not {sends} sends and receives a rank")
+    if cuda:
+        want_launches = {"fedavg_reduce": p}
+        if comp:
+            want_launches.update(chunk_quantize=p, chunk_dequantize=p * p)
+        check(launches == want_launches,
+              f"{what}: launches {launches}, not {want_launches}")
+    db = -(-d // nb)
+    wire = (p - 1) * (nb * db * (1 if comp else 4) + (4 * nb if comp else 0))
+    row = {"case": label, "D": d, "P": p, "n_blocks": nb, "compress": comp,
+           "p2p_sends_a_rank": sends, "wire_bytes_a_rank": wire,
+           "seconds": secs, "peak_gb": peak,
+           "launches": launches}
+    log(f"{what}: {p} ranks bit-equal to aggregate_blocks; {sends} sends "
+        f"a rank, {wire / 1e9:.3f} GB on the wire a rank; {secs:.3f} s; "
+        f"peak {peak:.2f} GB; launches {launches}")
+    if cuda:
+        free_cuda()
+    return row
+
+
+def check_transport_refusals() -> dict:
+    """The process-group transport refuses a tensor on the wrong kind of
+    device: a CUDA tensor on a gloo group, a CPU tensor on an NCCL
+    group (one-rank groups in this process; no collective runs)."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import torrent
+    out = {}
+    root = ROOT / "build" / "rendezvous"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    for backend, wrong in (("gloo", "cuda"), ("nccl", "cpu")):
+        dist.init_process_group(backend, init_method=f"file://{root}/"
+                                f"{backend}", rank=0, world_size=1)
+        try:
+            transport = torrent.GroupTransport(dist.group.WORLD, [0], 0)
+            t = torch.zeros(8, device=wrong)
+            try:
+                transport.shift([[t]], [[t]])
+                refused = None
+            except ValueError as e:
+                refused = str(e)
+        finally:
+            dist.destroy_process_group()
+        check(refused is not None,
+              f"a {wrong} tensor travelled over a {backend} group")
+        out[backend] = refused
+        log(f"{backend} group refuses a {wrong} tensor: {refused}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def run_ring_local() -> dict:
+    """The ring_local phase: ``RING_LOCAL_CASES`` compressed and not,
+    then the transport's refusals."""
+    t0 = time.perf_counter()
+    rows = [ring_local_case(label, d, p, nb, comp)
+            for label, d, p, nb in RING_LOCAL_CASES
+            for comp in (False, True)]
+    refusals = check_transport_refusals()
+    out = {"phase": "ring_local", "rows": rows, "refusals": refusals,
+           "phase_s": time.perf_counter() - t0}
+    log(f"ring_local phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def check_moe_ep_local(device="cuda", tokens: int = MOE_EP_TOKENS) -> dict:
+    """olmoe-1b-7b's MoE FFN at full width (d_model 2048, 64 experts of
+    1024, top 8, bf16, the config's capacity factor) on ``tokens``
+    seeded tokens: the bf16 sum of ``ms`` virtual model ranks'
+    ``_moe_local_block`` outputs (what the expert-parallel path's
+    ``all_reduce`` adds), for each ``MOE_EP_RANKS``, against
+    ``_moe_ffn`` within 1e-2."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import (_moe_ffn, _moe_local_block,
+                                           init_layer)
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    cfg = get_config("olmoe-1b-7b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    p = init_layer(cfg, "moe", gen, dev)
+    x = torch.randn((tokens, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    out = {"phase": "moe_ep_local", "tokens": tokens,
+           "capacity_factor": cfg.capacity_factor, "ranks": {}}
+
+    def ffn():
+        return _moe_ffn(cfg, p, x.view(1, tokens, -1)).view(tokens, -1)
+
+    def ranks_sum(ms: int):
+        """The bf16 sum of ms ranks' local blocks, as the all_reduce."""
+        e_loc = cfg.n_experts // ms
+        got = None
+        for g in range(ms):
+            mine = slice(g * e_loc, (g + 1) * e_loc)
+            y = _moe_local_block(cfg, x, p["router"], p["moe_gate"][mine],
+                                 p["moe_up"][mine], p["moe_down"][mine], g)
+            got = y if got is None else got + y
+        return got
+
+    with torch.no_grad():
+        want = ffn()
+        out["moe_ffn_ms"] = time_ms(ffn) if cuda else None
+        for ms in MOE_EP_RANKS:
+            got = ranks_sum(ms)
+            err = _close_err(got, want, MOE_EP_TOL, MOE_EP_TOL,
+                             f"olmoe expert-parallel MoE over {ms} ranks")
+            t = time_ms(lambda: ranks_sum(ms)) if cuda else None
+            out["ranks"][ms] = {"max_abs_err": err, "all_ranks_ms": t}
+            log(f"olmoe MoE over {ms} virtual model ranks "
+                f"({cfg.n_experts // ms} experts each, {tokens} tokens): "
+                f"max abs err {err:.3e} against _moe_ffn; all ranks' "
+                f"local blocks {t} ms (_moe_ffn {out['moe_ffn_ms']} ms; "
+                "CUDA events, median of 10)")
+    del p, x, want, got
+    if cuda:
+        free_cuda()
+    return out
+
+
+def check_remat_binding(device="cuda") -> dict:
+    """The model's checkpoints (``layers.checkpointed``) carry the
+    ``axis_rules`` binding into the recomputation, which autograd runs
+    on a device thread of its own for CUDA tensors, where a plain
+    checkpoint's recomputation finds no binding (and the MoE would
+    choose its route anew).  Returns the threads and the meshes seen."""
+    import threading
+
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models.layers import checkpointed
+    from repro_torch.sharding.api import (DEFAULT_RULES, axis_rules,
+                                          current_rules)
+    mesh = "stand-in mesh"
+
+    def seen_by(ckpt):
+        seen = []
+
+        def fn(x):
+            state = current_rules()
+            seen.append((threading.get_ident(),
+                         None if state is None else state[1]))
+            return x.sin()
+
+        x = torch.ones(8, device=device, requires_grad=True)
+        with axis_rules(DEFAULT_RULES, mesh):       # as the FL step
+            ckpt(fn, x).sum().backward()
+        check(len(seen) == 2, f"checkpoint ran its function {len(seen)} "
+              "times, not twice")
+        return seen
+
+    ours = seen_by(checkpointed)
+    plain = seen_by(lambda f, x: checkpoint(f, x, use_reentrant=False))
+    out = {"recompute_on_another_thread": ours[1][0] != ours[0][0],
+           "checkpointed_binding": ours[1][1] == mesh,
+           "plain_checkpoint_binding": plain[1][1] == mesh}
+    log(f"remat binding: {out}")
+    check(ours[0][1] == mesh and ours[1][1] == mesh,
+          f"checkpointed's recomputation lost the axis_rules binding: {out}")
+    return out
+
+
+def ring_nccl_rank(rank: int, world: int, tmp: str, device: str = "cuda",
+                   reduced: bool = False) -> None:
+    """One rank of the ring_nccl phase (a process of its own): the pod
+    ring of ``torrent_fedavg(mesh=)`` and ``RING_NCCL_STEPS`` pod-parallel
+    steps of qwen3-1.7b, written to ``tmp/rank<r>.json``; rank 0 also
+    runs the single-device path on its device and compares."""
+    import os
+
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ["LOCAL_RANK"] = str(rank)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import torrent
+    from repro_torch.dist.fl_step import make_fl_train_step
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_distributed, make_pod_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.schedules import constant_lr
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed(device, init_method=f"file://{tmp}/rendezvous",
+                           rank=rank, world_size=world)
+    sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+            else (lambda: None))
+    mesh = make_pod_mesh(world)
+    log(f"rank {rank}: {dev}, {dist.get_backend()}, {mesh}")
+    out: dict = {"rank": rank, "device": str(dev), "ring": {}}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    d = 4096 if reduced else RING_NCCL_D
+    ups = {"u": torch.randn((world, d), generator=gen, device=dev)}
+    w, a = _ring_weights(world, dev)
+    for comp in (False, True):
+        torrent.reset_p2p()
+        sync()
+        t0 = time.perf_counter()
+        agg = torrent.torrent_fedavg(ups, w, a, mesh=mesh,
+                                     n_blocks=TORRENT_BLOCKS, compress=comp)
+        sync()
+        secs = time.perf_counter() - t0
+        single = torrent.torrent_fedavg(ups, w, a, n_blocks=TORRENT_BLOCKS,
+                                        compress=comp)
+        out["ring"][str(comp)] = {
+            "equal_single": bool(torch.equal(agg["u"], single["u"])),
+            "sum": float(agg["u"].double().sum()),
+            "p2p": [torrent.P2P["send", rank], torrent.P2P["recv", rank]],
+            "seconds": secs}
+        log(f"rank {rank}: ring compress={comp} {out['ring'][str(comp)]}")
+    del ups, agg, single
+
+    cfg = get_config("qwen3-1.7b", reduced=reduced)
+    b_local, seq = (2, 16) if reduced else (1, 512)
+
+    def steps(m):
+        g = torch.Generator(device=dev)
+        g.manual_seed(1)
+        params = init_params(cfg, g)
+        opt = adamw_init(params)
+        step = make_fl_train_step(cfg, m, lr_schedule=constant_lr(1e-4),
+                                  n_pods=world,
+                                  torrent_blocks=TORRENT_BLOCKS)
+        rng = np.random.default_rng(1)
+        ones = torch.ones(world, device=dev)
+        losses, secs = [], []
+        for _ in range(RING_NCCL_STEPS):
+            batch = train.synthetic_batch(rng, world, b_local, seq,
+                                          cfg.vocab, device=dev)
+            sync()
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch, ones, ones)
+            losses.append(float(met["loss"]))
+            sync()
+            secs.append(time.perf_counter() - t0)
+            log(f"rank {rank}: {'ring' if m else 'single-device'} step "
+                f"loss {losses[-1]:.4f}, {secs[-1]:.3f} s")
+        # params and the f32 master, m and v: m and v carry the
+        # aggregated gradients themselves
+        return (params, opt.master, opt.m, opt.v), losses, secs
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state, losses, secs = steps(mesh)
+    out["steps"] = {"losses": losses, "seconds": secs,
+                    "sum": [sum(float(l.double().sum()) for l in leaves(t))
+                            for t in state]}
+    if dev.type == "cuda":
+        out["steps"]["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if rank == 0:
+        # the ring's state waits on the host while the single-device
+        # path, which holds all P rows, runs on the card
+        state = [x.cpu() for x in leaves(state)]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        ref, ref_losses, _ = steps(None)
+        out["single"] = {
+            "losses": ref_losses,
+            "max_abs_diff": max(float((x.to(dev).float() - y.float())
+                                      .abs().max())
+                                for x, y in zip(state, leaves(ref)))}
+        del ref
+    del state
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def wait_ranks(procs, timeout: float) -> list:
+    """Wait for every rank process; once one fails or ``timeout``
+    seconds pass, kill the rest (a rank blocked in a collective whose
+    peer died would wait out the process group's own timeout).
+    Returns the exit codes, None for a rank killed at the timeout."""
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            if (all(c is not None for c in codes)
+                    or any(c not in (None, 0) for c in codes)
+                    or time.monotonic() > deadline):
+                return codes
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def run_ring_nccl(device: str = "cuda", ranks: int | None = None,
+                  reduced: bool = False) -> dict:
+    """The ring_nccl phase: with two or more GPUs, min(count, 4) NCCL
+    ranks, one process a GPU (``ring_nccl_rank``), each held to the
+    single-device path; with one, a line that says it did not run.
+    ``device="cpu"`` with ``ranks`` rehearses it over gloo ranks."""
+    import shutil
+
+    import torch
+    gpus = torch.cuda.device_count() if device == "cuda" else 0
+    if ranks is None:
+        if gpus < 2:
+            out = {"phase": "ring_nccl", "ran": False, "gpus": gpus}
+            log(json.dumps(out))
+            return out
+        ranks = min(gpus, NCCL_MAX_RANKS)
+    tmp = ROOT / "build" / "ring_nccl"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    t0 = time.perf_counter()
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(ranks)]
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as c; "
+             f"c.ring_nccl_rank({r}, {ranks}, {str(tmp)!r}, {device!r}, "
+             f"{reduced})"], cwd=str(ROOT), stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(ranks)]
+        codes = wait_ranks(procs, RING_NCCL_TIMEOUT)
+    finally:
+        for f in logs:
+            f.close()
+    for r, code in enumerate(codes):
+        check(code == 0, f"ring_nccl rank {r} exited {code}:\n"
+              + (tmp / f"rank{r}.log").read_text()[-3000:])
+    res = [json.loads((tmp / f"rank{r}.json").read_text())
+           for r in range(ranks)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    sends = (ranks - 1) * TORRENT_BLOCKS
+    for comp in ("False", "True"):
+        rows = [r["ring"][comp] for r in res]
+        check(all(x["equal_single"] for x in rows),
+              f"ring_nccl compress={comp}: a rank's torrent_fedavg(mesh=) "
+              "differs from the single-device path")
+        check(len({x["sum"] for x in rows}) == 1,
+              f"ring_nccl compress={comp}: ranks' aggregates differ")
+        want = sends + (ranks - 1) * (comp == "True")
+        check(all(x["p2p"] == [want, want] for x in rows),
+              f"ring_nccl compress={comp}: P2P {[x['p2p'] for x in rows]}, "
+              f"not {want}")
+    check(len({tuple(r["steps"]["sum"]) for r in res}) == 1,
+          "ring_nccl: ranks' params or optimizer states differ after the "
+          "pod-parallel steps")
+    check(len({tuple(r["steps"]["losses"]) for r in res}) == 1,
+          "ring_nccl: ranks' losses differ")
+    single = res[0]["single"]
+    got = res[0]["steps"]["losses"]
+    check(all(math.isfinite(x) for x in got), f"ring_nccl losses {got}")
+    # Each rank runs the single-device path's kernels on the same rows,
+    # fills the ring's buffer in the same order and aggregates it with
+    # the same fedavg_reduce: the losses, params and f32 optimizer
+    # states are the single-device ones bit for bit.  (Adam normalises
+    # its step to about lr an element, so a tolerance on the params
+    # alone would pass any gradient.)
+    check(got == single["losses"],
+          f"ring_nccl losses {got} against single-device "
+          f"{single['losses']}")
+    check(single["max_abs_diff"] == 0.0,
+          "ring_nccl params or optimizer state differ from the "
+          f"single-device path by {single['max_abs_diff']:.3e}")
+    out = {"phase": "ring_nccl", "ran": True, "gpus": gpus,
+           "ranks": ranks, "backend": "nccl" if device == "cuda" else "gloo",
+           "ring": {c: [r["ring"][c] for r in res]
+                    for c in ("False", "True")},
+           "steps": [r["steps"] for r in res], "single": single,
+           "phase_s": time.perf_counter() - t0}
+    log(json.dumps(out))
+    return out
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -3783,6 +4277,10 @@ def main() -> int:
         rows += slot_rows
         event = run_event_paths()
         fl = run_fl_paths()
+        ring = run_ring_local()
+        moe_ep = check_moe_ep_local()
+        moe_ep["remat_binding"] = check_remat_binding()
+        nccl = run_ring_nccl()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}",
               file=sys.stderr, flush=True)
@@ -3792,6 +4290,9 @@ def main() -> int:
     log(json.dumps({"slot_engine": slot, "card": card}))
     log(json.dumps({"event_paths": event, "card": card}))
     log(json.dumps({"fl_paths": fl, "card": card}))
+    log(json.dumps({"ring_local": ring, "card": card}))
+    log(json.dumps({"moe_ep_local": moe_ep, "card": card}))
+    log(json.dumps({"ring_nccl": nccl, "card": card}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
-"""Collective layer on one device: the torrent aggregate + the FL step.
+"""Collective layer: the torrent aggregate + the FL step.
 
 ``torrent.py``  — ``torrent_fedavg``: chunked dissemination of per-pod
-updates (optionally int8-compressed per block), then masked FedAvg.
+updates (optionally int8-compressed per block), then masked FedAvg; on
+a mesh's ``pod`` axis a ring of P2P sends over ``torch.distributed``.
 
 ``fl_step.py``  — ``make_fl_train_step``: per-pod local gradients ->
-torrent aggregate -> one AdamW update; ``ElasticFLStep``: the step
-rebuilt per active pod count (§III-E); ``make_serve_step``: one greedy
-decode step.
+torrent aggregate -> one AdamW update; ``ElasticFLStep``: the mesh and
+step rebuilt per active pod count (§III-E); ``make_serve_step``: one
+greedy decode step.
 """
 from .fl_step import ElasticFLStep, make_fl_train_step, make_serve_step
 from .torrent import take_pods, torrent_fedavg

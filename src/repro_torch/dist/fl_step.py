@@ -1,41 +1,57 @@
-"""Pod-masked FL training step on one device.
+"""Pod-masked FL training step.
 
 Port of ``repro/dist/fl_step.py``'s train step (§III):
 
-    1. every pod computes the gradient of ITS batch shard (a loop over
-       the pods where the JAX code vmaps), writing it straight into its
-       row of one (P, D) f32 buffer in ``jax.tree_util`` leaf order;
+    1. every pod computes the gradient of ITS batch shard, writing it
+       straight into a flat f32 row in ``jax.tree_util`` leaf order;
+       within a pod the batch is data-parallel over the mesh's ``data``
+       axis (each rank takes its slice, an ``all_reduce`` averages);
     2. the rows are disseminated and aggregated by the torrent
-       collective (``dist.torrent``: optional int8 round trip, then the
-       masked FedAvg kernel);
-    3. the aggregate drives ONE AdamW update.
+       collective (``dist.torrent``): on a mesh with a ``pod`` axis each
+       rank computes its own pod's row and the ring carries it to the
+       others; without one, a loop over the pods fills one (P, D)
+       buffer on this device (optional int8 round trip, then the masked
+       FedAvg kernel);
+    3. the aggregate drives ONE AdamW update, the same on every rank.
 
 Fault tolerance is a mask: a straggler pod (``active[p] == 0``) still
-computes its gradient, but its row is selected out of the aggregate, so
-its batch cannot influence the result.  A round with zero active mass
-is a no-op: params, moments and the step counter stay untouched.
+computes its gradient and rides the ring, but its row is selected out
+of the aggregate, so its batch cannot influence the result.  A round
+with zero active mass is a no-op: params, moments and the step counter
+stay untouched.
 
 ``n_pods == 1`` folds the pod axis into the batch and runs plain
-data-parallel SGD, with no collective.
+data-parallel SGD, with no torrent collective.
 
 ``ElasticFLStep`` is the cross-round elastic form (§III-E): each call
-dispatches on the batch's pod count and builds the step for a new P
-once.  On one device every pod shares the card, so a re-mesh is only a
-new buffer layout; params and optimizer state carry over unchanged.
+dispatches on the batch's pod count and builds the mesh and the step
+for a new P once.  Params and optimizer state stay on each rank's
+device across a re-mesh (the JAX package re-places them on the new
+mesh).
+
+The dense tensor-parallel and ZeRO placements of
+``sharding.param_specs`` are not applied: on a ``model`` or ``data``
+axis dense parameters stay replicated, which computes the same
+function.  The expert-parallel MoE (``models.layers``) runs over the
+``model`` axis when the mesh has no pod axis.
 
 The step updates params and optimizer state in place (see
-``optim.adamw``); at full width (qwen3-1.7b, P = 2) it holds params,
-fp32 master/m/v, the (P, D) buffer, the int8 codes, the f32 aggregate
-and one pod's gradients: about 52 GB before activations.
+``optim.adamw``); at full width on one device (qwen3-1.7b, P = 2) it
+holds params, fp32 master/m/v, the (P, D) buffer, the int8 codes, the
+f32 aggregate and one pod's gradients: about 52 GB before activations.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.dist.torrent import (aggregate_blocks, alloc_blocks,
-                                      masked_weights, require_no_mesh)
+from repro_torch.dist.torrent import (GroupTransport, _unflatten,
+                                      aggregate_blocks, alloc_blocks,
+                                      masked_weights, ring_fedavg)
+from repro_torch.launch.mesh import pod_axis_size
 from repro_torch.models import decode_step, train_loss
 from repro_torch.optim import adamw_update
+from repro_torch.sharding.api import DEFAULT_RULES, axis_rules, axis_sizes
 from repro_torch.tree import flatten, unflatten
 
 
@@ -115,6 +131,41 @@ def _microbatched_value_and_grad(loss_fn, params, inp, lab,
     return acc_l * scale, None
 
 
+def _row_meta(params, b: int, microbatch: int):
+    """``_unflatten``'s meta for a gradient row of ``params``: the
+    aggregate takes the params' dtypes, or f32 where microbatches
+    accumulate, as the JAX step's gradients do."""
+    leaves, treedef = flatten(params)
+    split = _n_microbatches(b, microbatch) > 0
+    return (treedef, [tuple(l.shape) for l in leaves],
+            [torch.float32 if split else l.dtype for l in leaves],
+            sum(l.numel() for l in leaves))
+
+
+def _data_shard(mesh, inp, lab):
+    """This rank's slice of a batch along the mesh's ``data`` axis."""
+    ds = 1 if mesh is None else int(axis_sizes(mesh).get("data", 1))
+    if ds == 1:
+        return inp, lab
+    b = inp.shape[0]
+    if b % ds:
+        raise ValueError(f"batch {b} is not divisible by the data axis "
+                         f"({ds} ranks)")
+    sl = slice(mesh.coords["data"] * (b // ds),
+               (mesh.coords["data"] + 1) * (b // ds))
+    return inp[sl], lab[sl]
+
+
+def _data_mean(mesh, *tensors) -> None:
+    """Average tensors in place over the mesh's ``data`` group."""
+    if mesh is None or "data" not in (mesh.groups or {}):
+        return
+    ds = mesh.shape["data"]
+    for t in tensors:
+        dist.all_reduce(t, group=mesh.groups["data"])
+        t.div_(ds)
+
+
 def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
                        rules=None, torrent_blocks: int = 4,
                        compress: bool = False, microbatch: int = 0,
@@ -123,49 +174,86 @@ def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
     (params, opt, {"loss", "lr"}).
 
     batch: {"inputs": (n_pods, B_local, T[, D]), "labels": (...)}, the
-    leading axis is the pod (FL client) axis; weights/active are
-    (n_pods,) FedAvg weights and the round's participation mask.
+    leading axis is the pod (FL client) axis, the same batch on every
+    rank; weights/active are (n_pods,) FedAvg weights and the round's
+    participation mask.
 
-    ``mesh`` and ``rules`` are the JAX package's sharding arguments:
-    ``mesh=None`` is the single-device path (``rules`` then has nothing
-    to place); a mesh raises (:func:`require_no_mesh`).
+    ``mesh`` (a ``launch.mesh.DeviceMesh`` or None) and ``rules`` are
+    the JAX package's sharding arguments.  With a ``pod`` axis of
+    ``n_pods`` ranks each rank computes its own pod's gradient and the
+    torrent ring aggregates; a ``data`` axis splits each batch over its
+    ranks.  ``mesh=None`` is the single-device path.
     """
-    require_no_mesh(mesh)
+    rules = dict(DEFAULT_RULES if rules is None else rules)
+    pod = pod_axis_size(mesh) if n_pods > 1 else 1
+    if pod > 1 and pod != n_pods:
+        raise ValueError(f"updates leading axis {n_pods} != pod axis size "
+                         f"{pod}")
+
     def loss_fn(p, x, y):
         return train_loss(cfg, p, x, y, ce_chunk=ce_chunk)
 
+    def grad_row(params, inp, lab, out):
+        """This rank's loss and gradient row for one pod's batch."""
+        inp, lab = _data_shard(mesh, inp, lab)
+        loss, _ = _microbatched_value_and_grad(loss_fn, params, inp, lab,
+                                               microbatch, out=out)
+        loss = loss.float().reshape(1)
+        _data_mean(mesh, out, loss)
+        return loss[0]
+
     def step(params, opt, batch, weights, active):
+        with axis_rules(rules, mesh):
+            return _step(params, opt, batch, weights, active)
+
+    def _step(params, opt, batch, weights, active):
         lr = lr_schedule(opt.step)
         inputs, labels = batch["inputs"], batch["labels"]
         if n_pods <= 1:
             inp = inputs.reshape((-1,) + tuple(inputs.shape[2:]))
             lab = labels.reshape((-1,) + tuple(labels.shape[2:]))
-            loss, agg = _microbatched_value_and_grad(
-                loss_fn, params, inp, lab, microbatch)
+            if mesh is None:
+                loss, agg = _microbatched_value_and_grad(
+                    loss_fn, params, inp, lab, microbatch)
+            else:
+                meta = _row_meta(params, inp.shape[0], microbatch)
+                row = torch.empty(meta[3], dtype=torch.float32,
+                                  device=inp.device)
+                loss = grad_row(params, inp, lab, row)
+                agg = _unflatten(row, meta)
             params, opt = adamw_update(agg, opt, params, lr=lr)
             return params, opt, {"loss": loss, "lr": lr}
 
-        leaves, treedef = flatten(params)
-        dev = leaves[0].device
+        dev = flatten(params)[0][0].device
         weights = torch.as_tensor(weights, device=dev)
         active = torch.as_tensor(active, device=dev)
         p = inputs.shape[0]
-        split = _n_microbatches(inputs.shape[1], microbatch) > 0
-        meta = (treedef, [tuple(l.shape) for l in leaves],
-                [torch.float32 if split else l.dtype for l in leaves],
-                sum(l.numel() for l in leaves))
+        meta = _row_meta(params, inputs.shape[1], microbatch)
         d = meta[3]
-        blocks = alloc_blocks(p, d, torrent_blocks, dev)
-        rows = blocks.view(p, -1)
-        losses = torch.stack([
-            _microbatched_value_and_grad(loss_fn, params, inputs[i],
-                                         labels[i], microbatch,
-                                         out=rows[i, :d])[0]
-            for i in range(p)])
-        del rows
-        agg = aggregate_blocks(blocks, meta, weights, active,
-                               compress=compress)
-        del blocks
+        if pod > 1:
+            me = mesh.coords["pod"]
+            blocks = alloc_blocks(1, d, torrent_blocks, dev)
+            loss_me = grad_row(params, inputs[me], labels[me],
+                               blocks.view(1, -1)[0, :d])
+            flat, = ring_fedavg(GroupTransport.for_mesh(mesh), [blocks[0]],
+                                weights, active, compress=compress)
+            del blocks
+            agg = _unflatten(flat, meta)
+            del flat
+            # every pod's loss, for the masked mean below
+            losses = torch.zeros((p,), dtype=torch.float32, device=dev)
+            losses[me] = loss_me
+            dist.all_reduce(losses, group=mesh.groups["pod"])
+        else:
+            blocks = alloc_blocks(p, d, torrent_blocks, dev)
+            rows = blocks.view(p, -1)
+            losses = torch.stack([
+                grad_row(params, inputs[i], labels[i], rows[i, :d])
+                for i in range(p)])
+            del rows
+            agg = aggregate_blocks(blocks, meta, weights, active,
+                                   compress=compress)
+            del blocks
         wn = masked_weights(weights, active)
         # select (don't multiply): a pod masked because it diverged
         # reports a NaN loss, and 0 * NaN == NaN
@@ -182,25 +270,27 @@ def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
 
 
 class ElasticFLStep:
-    """Elastic-P FL step: the step is rebuilt per active pod count.
+    """Elastic-P FL step: re-mesh + ring rebuild across rounds.
 
-    ``mesh_factory(p)`` returns the mesh to train ``p`` active pods on,
-    as in the JAX package; a factory that returns ``None`` gives the
-    single-device path, and a mesh raises
-    (:func:`require_no_mesh`).  Each call dispatches on the batch's
-    leading (pod) axis, so the caller slices its batch to the surviving
-    pods (e.g. with :func:`repro_torch.dist.torrent.take_pods`) and the
-    step follows:
+    ``mesh_factory(p)`` returns the mesh to train ``p`` active pods on
+    (``launch.mesh.make_pod_mesh``), or ``None`` for the single-device
+    path; it is consulted once per distinct pod count, so it must be
+    called on every rank in the same order (it creates process groups).
+    Each call dispatches on the batch's leading (pod) axis, so the
+    caller slices its batch to the surviving pods (e.g. with
+    :func:`repro_torch.dist.torrent.take_pods`) and the step re-meshes
+    itself:
 
-        step = ElasticFLStep(cfg, lr_schedule=sched,
-                             mesh_factory=lambda p: None)
-        params, opt, m = step(params, opt, batch4, w4, a4)   # P=4
-        params, opt, m = step(params, opt, batch3, w3, a3)   # P=3
+        step = ElasticFLStep(cfg, lr_schedule=sched, mesh_factory=mf)
+        params, opt, m = step(params, opt, batch4, w4, a4)   # P=4 ring
+        params, opt, m = step(params, opt, batch3, w3, a3)   # P=3 ring
         params, opt, m = step(params, opt, batch4, w4, a4)   # cached
 
-    Params and optimizer state carry across pod counts unchanged (the
-    §III-E recovery contract: a drop shrinks the collective, never
-    resets training).
+    A rank outside the mesh for P (``not mesh.is_member``) must not
+    call the step; ``step_for(p)`` builds the mesh without running it.
+    Params and optimizer state carry across re-meshes unchanged and stay
+    on each rank's device (the §III-E recovery contract: a drop shrinks
+    the collective, never resets training).
     """
 
     def __init__(self, cfg, *, lr_schedule, mesh_factory, **step_kw):
@@ -208,15 +298,15 @@ class ElasticFLStep:
         self.lr_schedule = lr_schedule
         self.mesh_factory = mesh_factory
         self.step_kw = dict(step_kw)
-        self._cache: dict[int, object] = {}
+        self._cache: dict[int, tuple] = {}
 
     def step_for(self, n_pods: int):
-        """The step for ``n_pods`` active pods; built once per count."""
+        """(mesh, step) for ``n_pods`` active pods; built once per count."""
         if n_pods not in self._cache:
-            self._cache[n_pods] = make_fl_train_step(
-                self.cfg, self.mesh_factory(n_pods),
-                lr_schedule=self.lr_schedule,
-                n_pods=n_pods, **self.step_kw)
+            mesh = self.mesh_factory(n_pods)
+            self._cache[n_pods] = (mesh, make_fl_train_step(
+                self.cfg, mesh, lr_schedule=self.lr_schedule,
+                n_pods=n_pods, **self.step_kw))
         return self._cache[n_pods]
 
     @property
@@ -226,7 +316,11 @@ class ElasticFLStep:
 
     def __call__(self, params, opt, batch, weights, active):
         p = int(batch["inputs"].shape[0])
-        return self.step_for(p)(params, opt, batch, weights, active)
+        mesh, step = self.step_for(p)
+        if mesh is not None and not mesh.is_member:
+            raise ValueError(f"rank {mesh.rank} is outside the {p}-pod "
+                             f"mesh {mesh}")
+        return step(params, opt, batch, weights, active)
 
 
 def make_serve_step(cfg):

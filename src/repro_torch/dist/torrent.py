@@ -1,43 +1,69 @@
-"""Torrent collective: chunked dissemination + masked FedAvg, on one device.
+"""Torrent collective: chunked ring dissemination + masked FedAvg.
 
-Port of ``repro/dist/torrent.py``'s single-device path.  Every client
-ships its full update to every other client as fixed-size blocks, then
-each client aggregates over the active set it reconstructed:
+Port of ``repro/dist/torrent.py``.  Every client ships its full update
+to every other client as fixed-size blocks, then each client aggregates
+over the active set it reconstructed.  On the ``pod`` axis of a mesh
+that is a ring of P ranks (``ring_gather``, the reference's
+``_ring_device_body``):
 
-    flatten:     the per-pod update pytrees become one (P, n_blocks, db)
-                 f32 buffer, leaves concatenated in ``jax.tree_util``
-                 order (sorted dict keys), so the blocks, and with them
-                 the quantization scales, match the JAX package's;
-    compress:    each block is quantized to int8 + one f32 scale at its
-                 source and dequantized by the receivers (one rounding
-                 per element, <2% relative error);
-    aggregate:   masked FedAvg  sum_u m_u w_u x_u / sum_u m_u w_u  over
-                 the (P, D) buffer — the ``kernels.fedavg`` hot path.
+    source:      the rank's (n_blocks, db) f32 row; with ``compress``
+                 quantized once to int8 codes + one f32 scale a block,
+                 and the codes then circulate losslessly;
+    stage s in 1..P-1:  every rank sends what it received last stage
+                 (its own row at first) to rank (p+1) mod P, one P2P
+                 send a block plus one for the scales, all in one
+                 ``batch_isend_irecv``: (P-1) x n_blocks (+ P-1) sends
+                 a rank, as the reference lowers (P-1) x n_blocks
+                 ``collective-permute``s;
+    each stage:  the payload lands in a (P, n_blocks, db) f32 buffer
+                 at its SOURCE index (dequantized there when
+                 compressed), so every rank's buffer, and with it the
+                 masked FedAvg ``sum_u m_u w_u x_u / sum_u m_u w_u``
+                 (``kernels.fedavg``), is the same bit for bit.
 
-On one device the P pods share the card and the ring's terminal state
-is the source blocks themselves (``ring_allgather_emulated`` checks
-that), so ``torrent_fedavg`` aggregates the (optionally
-quantize-roundtripped) blocks directly, as the JAX single-device path
-does.  The multi-GPU ring over ``torch.distributed`` is a later slice.
+The ring body runs over a transport that moves a stage's blocks: a
+``GroupTransport`` over a process group (NCCL for CUDA tensors, gloo
+for CPU tensors; a tensor on the wrong kind of device raises), or a
+``LocalTransport`` of P virtual ranks in one process, where a send is a
+device copy (``ring_allgather_emulated``).  ``P2P`` counts the sends
+and receives each pod rank issues.
 
-The kernels dispatch on the device of their tensors: CUDA kernels for
-CUDA tensors, the plain versions for CPU tensors.  Unlike the JAX code
-the round trip writes the dequantized values back into the buffer it
-quantized, so a full-width step holds one (P, D) f32 buffer, not two.
+Without a pod axis (``mesh=None``, or one pod) the pods share one
+device and the ring's terminal state is the (optionally quantize-
+roundtripped) source blocks themselves, so ``torrent_fedavg``
+aggregates them directly, as the JAX single-device path does.  Unlike
+the JAX code the round trip writes the dequantized values back into
+the buffer it quantized, so a full-width step holds one (P, D) f32
+buffer, not two.
 
-Zero active mass returns zeros, never NaN.
+The flattened blocks follow ``jax.tree_util`` leaf order (sorted dict
+keys), so they, and with them the quantization scales, match the JAX
+package's.  The kernels dispatch on the device of their tensors: CUDA
+kernels for CUDA tensors, the plain versions for CPU tensors.  Zero
+active mass returns zeros, never NaN.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.fedavg import fedavg_reduce
 from repro_torch.kernels.quantize import chunk_dequantize, chunk_quantize
 from repro_torch.kernels.ref import masked_normalized_weights
+from repro_torch.launch.mesh import pod_axis_size
 from repro_torch.tree import flatten, unflatten
 
 # Normalized FedAvg weights; all-zero (not NaN) when no active mass.
 masked_weights = masked_normalized_weights
+
+# ("send" | "recv", pod index) -> P2P operations that pod's rank issued
+P2P: collections.Counter = collections.Counter()
+
+
+def reset_p2p() -> None:
+    P2P.clear()
 
 
 def alloc_blocks(p: int, d: int, n_blocks: int, device) -> torch.Tensor:
@@ -102,40 +128,130 @@ def _roundtrip(blocks: torch.Tensor) -> None:
     chunk_dequantize(q, s, out=rows)
 
 
+class LocalTransport:
+    """P virtual pod ranks in one process: a send is a device copy."""
+
+    def __init__(self, p: int):
+        self.p = p
+        self.ranks = list(range(p))
+
+    def shift(self, sends, recvs) -> None:
+        """``sends[i][j]`` of virtual rank i lands in ``recvs[i+1][j]``."""
+        for i in self.ranks:
+            src = sends[(i - 1) % self.p]
+            for s, r in zip(src, recvs[i]):
+                r.copy_(s)
+            P2P["send", i] += len(sends[i])
+            P2P["recv", i] += len(recvs[i])
+
+
+class GroupTransport:
+    """This rank of a pod ring over a process group: a stage sends to the
+    next rank and receives from the previous one, one P2P operation a
+    tensor, all in one ``batch_isend_irecv``."""
+
+    def __init__(self, group, ranks: list[int], index: int):
+        self.p = len(ranks)
+        self.ranks = [index]
+        self.group = group
+        self._next = ranks[(index + 1) % self.p]
+        self._prev = ranks[(index - 1) % self.p]
+        # NCCL carries CUDA tensors, gloo CPU tensors: never a silent
+        # staging copy through the host
+        self._kind = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+
+    @classmethod
+    def for_mesh(cls, mesh) -> GroupTransport:
+        """The pod ring of this rank of ``mesh``."""
+        if not mesh.is_member:
+            raise ValueError(f"rank {mesh.rank} is not in {mesh}")
+        return cls(mesh.groups["pod"], mesh.group_ranks["pod"],
+                   mesh.coords["pod"])
+
+    def shift(self, sends, recvs) -> None:
+        (sends,), (recvs,) = sends, recvs
+        ops = []
+        for j, (s, r) in enumerate(zip(sends, recvs)):
+            for t in (s, r):
+                if t.device.type != self._kind:
+                    raise ValueError(
+                        f"a {t.device} tensor cannot travel over a "
+                        f"{dist.get_backend(self.group)} group: NCCL "
+                        "carries CUDA tensors, gloo CPU tensors")
+            ops.append(dist.P2POp(dist.isend, s, self._next, self.group,
+                                  tag=j))
+            ops.append(dist.P2POp(dist.irecv, r, self._prev, self.group,
+                                  tag=j))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        P2P["send", self.ranks[0]] += len(sends)
+        P2P["recv", self.ranks[0]] += len(recvs)
+
+
+def ring_gather(transport, rows, *, compress: bool = False) -> list:
+    """The ring's rank body for the pod ranks ``transport.ranks``.
+
+    rows[i]: (n_blocks, db) update of pod ``transport.ranks[i]``.
+    Returns each rank's (P, n_blocks, db) f32 buffer, row u holding pod
+    u's update (dequantized from its source's codes when
+    ``compress``).  Uncompressed, a rank forwards the buffer row it
+    filled last stage and receives straight into the next one.
+    """
+    p = transport.p
+    bufs, circ, spare = [], [], []
+    for idx, my in zip(transport.ranks, rows):
+        my = my.to(torch.float32).contiguous()
+        buf = torch.empty((p,) + tuple(my.shape), dtype=torch.float32,
+                          device=my.device)
+        if compress:
+            q, s = chunk_quantize(my)           # once, at the source
+            circ.append((q, s))
+            spare.append((torch.empty_like(q), torch.empty_like(s)))
+        else:
+            buf[idx].copy_(my)
+        bufs.append(buf)
+    for stage in range(p):
+        srcs = [(idx - stage) % p for idx in transport.ranks]
+        if compress:
+            for buf, src, (q, s) in zip(bufs, srcs, circ):
+                chunk_dequantize(q, s, out=buf[src])
+        if stage == p - 1:
+            break
+        if compress:
+            transport.shift([[*q.unbind(0), s] for q, s in circ],
+                            [[*q.unbind(0), s] for q, s in spare])
+            circ, spare = spare, circ
+        else:
+            transport.shift([list(b[src].unbind(0))
+                             for b, src in zip(bufs, srcs)],
+                            [list(b[(src - 1) % p].unbind(0))
+                             for b, src in zip(bufs, srcs)])
+    return bufs
+
+
+def ring_fedavg(transport, rows, weights, active, *,
+                compress: bool = False) -> list:
+    """Masked FedAvg through the ring: each local rank's flat aggregate
+    of its gathered buffer, every one bit-identical.  Each buffer is
+    freed once its aggregate is taken."""
+    bufs = ring_gather(transport, rows, compress=compress)
+    out = []
+    while bufs:
+        buf = bufs.pop(0)
+        out.append(_aggregate(buf.view(buf.shape[0], -1), weights, active))
+    return out
+
+
 def ring_allgather_emulated(blocks: torch.Tensor, *,
                             compress: bool = False) -> torch.Tensor:
-    """Single-device emulation of the P-1 stage ring.
+    """The P-stage ring on one device, through ``LocalTransport``.
 
     blocks: (P, n_blocks, db).  Returns gathered[dest, src, block, e],
     the buffer each pod holds after the ring, so tests can assert that
     every destination reconstructs every source.
     """
-    p, n_blocks, db = blocks.shape
-    if compress:
-        q, s = chunk_quantize(blocks.reshape(p * n_blocks, db).contiguous())
-        buf_q = q.reshape(p, n_blocks, db)
-        buf_s = s.reshape(p, n_blocks, 1)
-    else:
-        buf = blocks
-    gathered = torch.zeros((p,) + tuple(blocks.shape), dtype=torch.float32,
-                           device=blocks.device)
-    dest = torch.arange(p, device=blocks.device)
-    for stage in range(p):
-        if compress:
-            payload = chunk_dequantize(
-                buf_q.reshape(p * n_blocks, db).contiguous(),
-                buf_s.reshape(p * n_blocks, 1)).reshape(p, n_blocks, db)
-        else:
-            payload = buf
-        gathered[dest, (dest - stage) % p] = payload.float()
-        if stage < p - 1:
-            # every pod forwards to pod+1 == roll by +1 on the pod axis
-            if compress:
-                buf_q = torch.roll(buf_q, 1, dims=0)
-                buf_s = torch.roll(buf_s, 1, dims=0)
-            else:
-                buf = torch.roll(buf, 1, dims=0)
-    return gathered
+    return torch.stack(ring_gather(LocalTransport(blocks.shape[0]),
+                                   list(blocks), compress=compress))
 
 
 def take_pods(tree, keep):
@@ -166,37 +282,34 @@ def aggregate_blocks(blocks: torch.Tensor, meta, weights, active, *,
     return _unflatten(agg, meta)
 
 
-def require_no_mesh(mesh) -> None:
-    """Refuse a device mesh: the port runs every pod on one device.
-
-    The JAX package's mesh arguments are accepted so its call shapes
-    run unchanged; ``None`` is the single-device path.  The multi-GPU
-    ring over ``torch.distributed`` is ROADMAP.md queue 1 item 2.
-    """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported to repro_torch yet (ROADMAP.md "
-            "queue 1 item 2: the multi-GPU torrent ring); pass mesh=None "
-            "or a mesh_factory that returns None for the single-device "
-            "path")
-
-
 def torrent_fedavg(updates, weights, active, *, mesh=None,
                    n_blocks: int = 4, compress: bool = False):
     """Masked FedAvg of per-pod updates via the torrent collective.
 
     updates: pytree whose leaves have leading axis P (stacked per-pod
     updates); weights, active: (P,).  Returns the aggregate pytree with
-    the leading axis removed and each leaf in its input dtype.
-    ``mesh=None`` is the single-device path; a mesh raises
-    (:func:`require_no_mesh`).
+    the leading axis removed and each leaf in its input dtype.  On a
+    mesh whose ``pod`` axis has P > 1 ranks each rank sends its own
+    pod's row around the ring (``ring_fedavg``) and every rank returns
+    the same aggregate; otherwise the pods share this device.
     """
-    require_no_mesh(mesh)
+    pod = pod_axis_size(mesh)
+    p = flatten(updates)[0][0].shape[0]
+    if pod > 1 and pod != p:
+        raise ValueError(f"updates leading axis {p} != pod axis size {pod}")
+    if pod > 1:
+        transport = GroupTransport.for_mesh(mesh)
+        blocks, meta = _flatten_updates(
+            take_pods(updates, transport.ranks), n_blocks)
+        agg, = ring_fedavg(transport, [blocks[0]], weights, active,
+                           compress=compress)
+        return _unflatten(agg, meta)
     blocks, meta = _flatten_updates(updates, n_blocks)
     return aggregate_blocks(blocks, meta, weights, active,
                             compress=compress)
 
 
-__all__ = ["alloc_blocks", "aggregate_blocks", "masked_weights",
-           "require_no_mesh", "ring_allgather_emulated", "take_pods",
-           "torrent_fedavg"]
+__all__ = ["GroupTransport", "LocalTransport", "P2P", "alloc_blocks",
+           "aggregate_blocks", "masked_weights", "reset_p2p",
+           "ring_allgather_emulated", "ring_fedavg", "ring_gather",
+           "take_pods", "torrent_fedavg"]

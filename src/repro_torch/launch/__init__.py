@@ -1,1 +1,1 @@
-# Launch layer: the train driver.
+# Launch layer: the train and serve drivers, device meshes.

@@ -28,17 +28,24 @@ loops.
 A ``"moe"`` layer is a global attention layer whose FFN is JAX's
 single-device top-k MoE (``_moe_ffn``): sort-based dispatch with a
 per-token-block capacity, dropped overflow, (E, cap, D) batched
-matmuls.  Its router is f32 in any model dtype.  The expert-parallel
-mesh path (``_moe_ffn_shardmap``, ``_moe_local_block``) is not ported.
+matmuls.  Its router is f32 in any model dtype.  Under ``axis_rules``
+with a mesh whose ``model`` axis divides the experts (and no pod axis)
+it runs expert-parallel instead (``_moe_ffn_ep``, JAX's
+``_moe_ffn_shardmap``): each rank of the ``model`` group routes its
+tokens over the full router table to its own slice of the experts, and
+one ``all_reduce`` sums the partial outputs.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, ref
+from repro_torch.sharding.api import axis_rules, axis_sizes, current_rules
 
 from .common import causal_conv1d, dense_init, rms_norm, rope, torch_dtype
 from .config import ArchConfig
@@ -60,6 +67,22 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def _act(name: str):
     return torch.nn.functional.silu if name == "silu" else _gelu
+
+
+def checkpointed(fn, *args):
+    """``checkpoint(fn, *args)`` (non-reentrant), with the caller's
+    ``axis_rules`` binding restored around the recomputation.
+
+    Autograd runs the backward of CUDA tensors, and with it the
+    recomputation, on a device thread of its own, where the thread-local
+    binding is absent: without it the MoE would choose its route anew
+    there (single-device where the forward ran expert-parallel).
+    """
+    state = current_rules()
+    if state is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), axis_rules(*state)))
 
 
 def _chunked_scan(step, init, xs, *, chunk: int, remat: bool):
@@ -90,7 +113,7 @@ def _chunked_scan(step, init, xs, *, chunk: int, remat: bool):
     for c in range(nb):
         xc = tuple(x[c * chunk:(c + 1) * chunk] for x in xs)
         if remat:
-            carry, y = checkpoint(scan, carry, xc, use_reentrant=False)
+            carry, y = checkpointed(scan, carry, xc)
         else:
             carry, y = scan(carry, xc)
         ys.append(y)
@@ -214,11 +237,133 @@ def _dense_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
 MOE_TOKEN_BLOCK = 8192
 
 
+class _CopyToGroup(torch.autograd.Function):
+    """A replicated input that every rank of ``group`` uses: the forward
+    is the identity, the backward sums the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Partial outputs of ``group``'s ranks summed: the forward is an
+    ``all_reduce``, the backward the identity (every rank then holds the
+    same sum and receives the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        y = y.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _moe_ffn_ep(cfg: ArchConfig, p: dict, h: torch.Tensor, mesh):
+    """Expert-parallel MoE over the mesh's ``model`` group.
+
+    Port of ``repro/models/layers.py::_moe_ffn_shardmap``.  The tokens
+    are this rank's (the FL step has already split the batch over the
+    ``data`` axis, where the JAX body takes its ``data`` shard), the
+    same on every rank of the ``model`` group.  Each rank routes them
+    over the full router table, keeps the assignments to its own
+    ``n_experts / model`` experts (``_moe_local_block``; capacity from
+    the local token count and the global expert count), and one
+    ``all_reduce`` sums the partial outputs.  The tokens, the router and
+    the expert tables enter through ``_CopyToGroup``, so their
+    gradients are the sums over the group: the single-device ones, on
+    every rank (the experts' tables are replicated, as every dense
+    parameter of the port is).
+
+    Returns None where the JAX package falls back to ``_moe_ffn``'s
+    blocked path: no ``model`` axis larger than 1, experts not divisible
+    by it, or a pod axis.
+    """
+    sizes = axis_sizes(mesh)
+    ms = int(sizes.get("model", 1))
+    if ms <= 1 or cfg.n_experts % ms or int(sizes.get("pod", 1)) > 1:
+        return None
+    group, g_id = mesh.groups["model"], mesh.coords["model"]
+    b, t, d = h.shape
+    e_loc = cfg.n_experts // ms
+    mine = slice(g_id * e_loc, (g_id + 1) * e_loc)
+    x = _CopyToGroup.apply(h.reshape(b * t, d), group)
+    router = _CopyToGroup.apply(p["router"], group)
+    wg, wu, wd = (_CopyToGroup.apply(p[k], group)[mine]
+                  for k in ("moe_gate", "moe_up", "moe_down"))
+    y = _moe_local_block(cfg, x, router, wg, wu, wd, g_id)
+    return _ReduceFromGroup.apply(y, group).reshape(b, t, d)
+
+
+def _moe_local_block(cfg: ArchConfig, x_loc, router, wg, wu, wd,
+                     g_id: int) -> torch.Tensor:
+    """Route local tokens to the local expert slice (sort-based).
+
+    Port of ``repro/models/layers.py::_moe_local_block``.  x_loc: (n,
+    D); router: the full (D, E) table; wg, wu, wd: experts ``g_id *
+    e_loc`` to ``(g_id + 1) * e_loc - 1``.  The top-k over all E
+    experts picks each token's assignments; those to other slices go
+    to a sink past the local experts; each expert's first ``cap``
+    assignments, in token order, are kept and the rest dropped.
+    Returns the local experts' share of the (n, D) output: summed over
+    the ``E / e_loc`` slices it is the output of all E experts (one
+    slice of all E is ``_moe_ffn_block``).
+    """
+    n, d = x_loc.shape
+    e, k_top = cfg.n_experts, cfg.top_k
+    e_loc = wg.shape[0]
+    dev = x_loc.device
+    probs = torch.softmax(x_loc.float() @ router, dim=-1)
+    gates, idx = _top_k(probs, k_top)                     # full table
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    rel = idx - g_id * e_loc                              # (n, k)
+    inb = (rel >= 0) & (rel < e_loc)
+    flat_e = torch.where(inb, rel, e_loc).reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    # each expert's first slot in the sorted order (a bincount's
+    # exclusive cumsum, without the host sync of a CUDA bincount)
+    starts = torch.searchsorted(sorted_e,
+                                torch.arange(e_loc + 1, dtype=flat_e.dtype,
+                                             device=dev))
+    pos_in_e = torch.arange(n * k_top, device=dev) - starts[sorted_e]
+    cap = math.ceil(n * k_top / e * cfg.capacity_factor)
+    cap = max(8, -(-cap // 8) * 8)
+    keep = (pos_in_e < cap) & (sorted_e < e_loc)
+    dest = torch.where(keep, sorted_e * cap + pos_in_e, e_loc * cap)
+    src_token = order // k_top
+
+    buf = torch.zeros((e_loc * cap + 1, d), dtype=x_loc.dtype, device=dev)
+    buf = buf.index_put((dest,), x_loc[src_token])
+    buf = buf[:-1].reshape(e_loc, cap, d)
+    g = torch.bmm(buf, wg)
+    u = torch.bmm(buf, wu)
+    y = torch.bmm(_act(cfg.act)(g) * u, wd)
+    y = torch.cat([y.reshape(e_loc * cap, d),
+                   torch.zeros((1, d), dtype=x_loc.dtype, device=dev)])
+    slot = torch.empty_like(dest).scatter_(0, order, dest)
+    yk = y[slot].reshape(n, k_top, d)
+    w = (gates * inb.to(gates.dtype)).to(x_loc.dtype)
+    return (w[..., None] * yk).sum(dim=1)
+
+
 def _moe_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     """Top-k MoE FFN, processed in token blocks.
 
-    Port of the single-device part of ``repro/models/layers.py::_moe_ffn``.
-    The B*T tokens are cut into blocks of MOE_TOKEN_BLOCK (halved until
+    Port of ``repro/models/layers.py::_moe_ffn``.  Under ``axis_rules``
+    with a mesh it first tries the expert-parallel path
+    (``_moe_ffn_ep``).  Otherwise the B*T tokens are cut into blocks of MOE_TOKEN_BLOCK (halved until
     it divides them; one block when it reaches B*T or falls under 64),
     each routed on its own with its own capacity, so the blocking is
     part of the function: it decides which assignments are dropped.
@@ -226,6 +371,11 @@ def _moe_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     JAX's ``jax.checkpoint`` over ``lax.map``, so the capacity buffers
     of one block at a time are live.
     """
+    state = current_rules()
+    if state is not None and state[1] is not None:
+        out = _moe_ffn_ep(cfg, p, h, state[1])
+        if out is not None:
+            return out
     b, t, d = h.shape
     n = b * t
     xf = h.reshape(n, d)
@@ -239,7 +389,7 @@ def _moe_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
         return _moe_ffn_block(cfg, p, xb)
 
     remat = torch.is_grad_enabled()
-    out = [checkpoint(fn, xb, use_reentrant=False) if remat else fn(xb)
+    out = [checkpointed(fn, xb) if remat else fn(xb)
            for xb in xf.split(block)]
     return torch.cat(out).reshape(b, t, d)
 
@@ -257,46 +407,14 @@ def _moe_ffn_block(cfg: ArchConfig, p: dict, xf: torch.Tensor
     """Sort-based top-k expert routing with capacity (drop overflow).
 
     Port of ``repro/models/layers.py::_moe_ffn_block``.  xf: (n, D).
-    The f32 router picks each token's top-k experts; the n*k
-    assignments, stably sorted by expert, take slots 0..cap-1 of their
-    expert in token order, and those past ``cap`` go to a sink row that
-    is dropped.  Returns (n, D) in xf's dtype.
+    ``_moe_local_block`` over all the experts (one slice): the f32
+    router picks each token's top-k experts; the n*k assignments,
+    stably sorted by expert, take slots 0..cap-1 of their expert in
+    token order, and those past ``cap`` go to a sink row that is
+    dropped.  Returns (n, D) in xf's dtype.
     """
-    n, d = xf.shape
-    e, k_top = cfg.n_experts, cfg.top_k
-    dev = xf.device
-    logits = xf.float() @ p["router"]
-    probs = torch.softmax(logits, dim=-1)
-    gates, idx = _top_k(probs, k_top)                     # (n, k)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-
-    cap = math.ceil(n * k_top / e * cfg.capacity_factor)
-    cap = max(8, -(-cap // 8) * 8)
-    flat_e = idx.reshape(-1)                              # (n*k,)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    # each expert's first slot in the sorted order (a bincount's
-    # exclusive cumsum, without the host sync of a CUDA bincount)
-    starts = torch.searchsorted(sorted_e,
-                                torch.arange(e, dtype=flat_e.dtype,
-                                             device=dev))
-    pos_in_e = torch.arange(n * k_top, device=dev) - starts[sorted_e]
-    keep = pos_in_e < cap
-    dest = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)
-    src_token = order // k_top
-
-    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=dev)
-    buf = buf.index_put((dest,), xf[src_token])
-    buf = buf[:-1].reshape(e, cap, d)
-    g = torch.bmm(buf, p["moe_gate"])
-    u = torch.bmm(buf, p["moe_up"])
-    y = torch.bmm(_act(cfg.act)(g) * u, p["moe_down"])
-    y = torch.cat([y.reshape(e * cap, d),
-                   torch.zeros((1, d), dtype=xf.dtype, device=dev)])
-
-    slot = torch.empty_like(dest).scatter_(0, order, dest)
-    yk = y[slot].reshape(n, k_top, d)
-    return (gates.to(xf.dtype)[..., None] * yk).sum(dim=1)
+    return _moe_local_block(cfg, xf, p["router"], p["moe_gate"],
+                            p["moe_up"], p["moe_down"], 0)
 
 
 def _apply_attn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,

@@ -12,8 +12,10 @@ The JAX code runs ``lax.scan`` over the stacked cycles; here a Python
 loop walks the layers.  Each stacked tensor is unbound once per call,
 so autograd gathers its gradient with one ``stack`` rather than one
 full-size scatter per layer.  ``cfg.remat`` checkpoints each layer
-(``torch.utils.checkpoint``, non-reentrant): activations are kept at
-layer boundaries only and recomputed in the backward pass.
+(``layers.checkpointed``: ``torch.utils.checkpoint``, non-reentrant,
+with the ``axis_rules`` binding carried into the recomputation):
+activations are kept at layer boundaries only and recomputed in the
+backward pass.
 
 Decode caches mirror the parameter tree (``{"cycles": {"slot<i>":
 stacked}, "tail": [...]}``, JAX's layout), so ``interop`` carries them
@@ -26,20 +28,24 @@ directly, where the JAX code pads a length-T cache with
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.tree import leaves
 
 from .common import (chunked_ce_loss, embed_tokens, rms_norm, torch_dtype,
                      unembed_logits)
 from .config import ArchConfig
-from .layers import apply_layer, init_cache, init_layer
+from .layers import apply_layer, checkpointed, init_cache, init_layer
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
-    """Random parameters drawn from ``gen``, on ``gen.device``."""
+def init_params(cfg: ArchConfig, gen: torch.Generator, *,
+                device=None) -> dict:
+    """Random parameters drawn from ``gen``, on ``gen.device``.
+
+    ``device="meta"`` (with a CPU ``gen``) gives the shapes and dtypes
+    of a full configuration without allocating its weights.
+    """
     dt = torch_dtype(cfg.dtype)
-    dev = gen.device
+    dev = gen.device if device is None else torch.device(device)
     std = cfg.d_model ** -0.5
 
     def normal(shape):
@@ -89,7 +95,7 @@ def _run_layers(cfg: ArchConfig, p: dict, x: torch.Tensor,
         def fn(h_in):
             return apply_layer(cfg, kind, lp, h_in, mode, cache, pos)[0]
         if remat:
-            return checkpoint(fn, h, use_reentrant=False)
+            return checkpointed(fn, h)
         return fn(h)
 
     slots = {i: {name: w.unbind(0)

@@ -84,6 +84,32 @@ def unflatten(treedef: TreeDef, leaves) -> object:
     return out
 
 
+def _paths_into(node, prefix: tuple, paths: list) -> None:
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _paths_into(node[k], prefix + (k,), paths)
+    elif _is_namedtuple(node):
+        for name, c in zip(node._fields, node):
+            _paths_into(c, prefix + (name,), paths)
+    elif isinstance(node, (list, tuple)):
+        for i, c in enumerate(node):
+            _paths_into(c, prefix + (i,), paths)
+    else:
+        paths.append(prefix)
+
+
+def flatten_with_paths(tree) -> tuple[list, list, TreeDef]:
+    """``(paths, leaves, treedef)``: each leaf's key path (dict keys,
+    sequence indices, NamedTuple field names), as
+    ``jax.tree_util.tree_flatten_with_path`` gives it, in leaf order."""
+    paths: list = []
+    _paths_into(tree, (), paths)
+    leaves_, treedef = flatten(tree)
+    return paths, leaves_, treedef
+
+
 def leaves(tree) -> list:
     return flatten(tree)[0]
 

@@ -36,6 +36,7 @@ from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E40
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.dist import torrent  # noqa: E402
 from repro_torch.dist.fl_step import ElasticFLStep, make_fl_train_step  # noqa: E402
+from repro_torch.launch.mesh import make_pod_mesh, pod_axis_size  # noqa: E402
 from repro_torch.models import ArchConfig  # noqa: E402
 from repro_torch.optim import OptState, adamw_init, adamw_update  # noqa: E402
 from repro_torch.optim import schedules  # noqa: E402
@@ -314,8 +315,11 @@ def test_reference_mesh_call_shapes():
     lr_schedule=..., mesh_factory=mf)``, ``make_fl_train_step(cfg, mesh,
     lr_schedule=..., n_pods=..., rules=...)`` and ``torrent_fedavg(...,
     mesh=...)``.  ``None``, or a factory returning ``None``, runs the
-    single-device path bit for bit; a mesh raises ``NotImplementedError``
-    naming ROADMAP queue 1 item 2."""
+    single-device path bit for bit; so does a mesh without a pod axis
+    larger than 1 (``make_pod_mesh(1)`` in one process), and a pod axis
+    whose size differs from the updates' leading axis raises
+    ``ValueError``, as the reference does.  The multi-rank ring is held
+    in ``tests/test_torch_dist_ranks.py``."""
     _, tcfg, _, (tp, to), batches = _step_setup(4)
     sched = schedules.linear_warmup_cosine(1e-2, 10, 20)
     batch = tree_map(torch.as_tensor, batches[0])
@@ -341,19 +345,33 @@ def test_reference_mesh_call_shapes():
         assert float(out[2]["loss"]) == float(want[2]["loss"])
     with pytest.raises(TypeError, match="mesh_factory"):
         ElasticFLStep(tcfg, lr_schedule=sched)    # required, as in JAX
-    mesh = object()                     # what make_pod_mesh would return
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        make_fl_train_step(tcfg, mesh, lr_schedule=sched, n_pods=4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        ElasticFLStep(tcfg, lr_schedule=sched,
-                      mesh_factory=lambda p: mesh)(tp, to, batch, w, a)
+    mesh = make_pod_mesh(1)             # one rank: a pod axis of size 1
+    assert mesh.is_member and pod_axis_size(mesh) == 1
+    runs = [make_fl_train_step(tcfg, mesh, lr_schedule=sched, n_pods=4)(
+                clone(tp), clone(to), batch, w, a),
+            ElasticFLStep(tcfg, lr_schedule=sched,
+                          mesh_factory=lambda p: mesh)(
+                clone(tp), clone(to), batch, w, a)]
+    for out in runs:
+        for x, y in zip(leaves(out[:2]), leaves(want[:2])):
+            assert torch.equal(x, y)
     ups = tree_map(torch.from_numpy, _updates())
     agg = torrent.torrent_fedavg(ups, w, a, mesh=None, n_blocks=4)
     for x, y in zip(leaves(agg),
                     leaves(torrent.torrent_fedavg(ups, w, a, n_blocks=4))):
         assert torch.equal(x, y)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        torrent.torrent_fedavg(ups, w, a, mesh=mesh)
+    for x, y in zip(leaves(agg),
+                    leaves(torrent.torrent_fedavg(ups, w, a, mesh=mesh))):
+        assert torch.equal(x, y)
+
+    class TwoPods:                      # what a 2-rank pod mesh reports
+        axis_names = ("pod", "data", "model")
+        devices = np.zeros((2, 1, 1))
+
+    with pytest.raises(ValueError, match="pod axis size 2"):
+        make_fl_train_step(tcfg, TwoPods(), lr_schedule=sched, n_pods=4)
+    with pytest.raises(ValueError, match="pod axis size 2"):
+        torrent.torrent_fedavg(ups, w, a, mesh=TwoPods())
 
 
 # ----------------------------------------------------------------------
