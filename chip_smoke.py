@@ -254,12 +254,27 @@ and imports nothing of the JAX package:
       path: losses, params and the f32 master, m and v equal bit for
       bit); with one GPU
       it prints ``{"phase": "ring_nccl", "ran": false, "gpus": 1}``;
-13. prints one ``{"slot_engine": {...}}`` line with the slot engine's
+13. the dry run (``repro_torch.launch.dryrun``, ``run_dryrun_paths``;
+   no kernel build; the plain path, as the dry run traces it):
+   a. fidelity: one pod's qwen3-1.7b training step at full width on a
+      one-device mesh (``DRYRUN_BATCH`` x ``DRYRUN_SEQ`` tokens),
+      traced under fake tensors and then run on the card, each under
+      ``CostCounter``: FLOPs, HBM bytes, op counts and collective counts
+      equal; the fake run's peak within 10% of the card's
+      ``max_memory_allocated``; a second step timed without the counter,
+      and ``model_flops`` over that time printed as TFLOP/s and as a
+      share of 989 TFLOP/s, with the roofline bound over the time and
+      the card's name and power limit;
+   b. one production cell: qwen3-1.7b ``train_4k`` traced on the
+      2 x 16 x 16 mesh (rank 0 of 512 on the ``fake`` backend: the pod
+      ring, the placements); its record printed;
+14. prints one ``{"slot_engine": {...}}`` line with the slot engine's
    times, one ``{"event_paths": {...}}`` line with those times, one
    ``{"fl_paths": {...}}`` line with the FL phase's rows and times,
-   ``{"ring_local": ...}``, ``{"moe_ep_local": ...}`` and
-   ``{"ring_nccl": ...}`` lines, one ``{"kernels": [...]}`` line and,
-   last, ``{"ok": true, "device": {...}}``.
+   ``{"ring_local": ...}``, ``{"moe_ep_local": ...}``,
+   ``{"ring_nccl": ...}`` and ``{"dryrun": ...}`` lines, one
+   ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+   {...}}``.
 
 Any failed phase exits non-zero before the last line is printed.  With
 no CUDA device, or outside a checkout of the repository, it exits
@@ -4243,6 +4258,109 @@ def run_ring_nccl(device: str = "cuda", ranks: int | None = None,
 
 # ----------------------------------------------------------------------
 
+# ----------------------------------------------------------------------
+# the dry run
+# ----------------------------------------------------------------------
+
+DRYRUN_ARCH = "qwen3-1.7b"
+DRYRUN_BATCH = 2                # sequences of one pod's fidelity step
+DRYRUN_SEQ = 4096
+DRYRUN_MEM_TOL = 0.10           # forecast peak vs max_memory_allocated
+DRYRUN_LIMIT_S = 120            # the phase's share of the script's time
+BF16_FLOPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16
+
+
+def run_dryrun_paths(device: str = "cuda", reduced: bool = False,
+                     cell: bool = True) -> dict:
+    """The dryrun phase: the fake trace of one pod's step against the
+    same step on the card (counts equal, peak forecast within
+    ``DRYRUN_MEM_TOL``), its achieved TFLOP/s, then one production
+    cell.  ``device="cpu", reduced=True`` rehearses it on the CPU (the
+    memory check then holds the two counters' peaks equal)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import cost_analysis as ca
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.flops import model_flops
+
+    t0 = time.perf_counter()
+    cuda = device == "cuda"
+    cfg = get_config(DRYRUN_ARCH, reduced=reduced)
+    shape = ShapeSpec("fidelity", 64 if reduced else DRYRUN_SEQ,
+                      DRYRUN_BATCH, "train")
+    if cuda:
+        free_cuda()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    res = dryrun.fake_and_real(cfg, shape, device=device)
+    fake, real = res["fake"], res["real"]
+    peak = (torch.cuda.max_memory_allocated() - base if cuda
+            else real.peak_bytes)
+    for what, a, b in (("flops", fake.costs.flops, real.costs.flops),
+                       ("hbm bytes", fake.costs.hbm_bytes,
+                        real.costs.hbm_bytes),
+                       ("ops", fake.n_ops, real.n_ops),
+                       ("collectives", fake.costs.coll_counts,
+                        real.costs.coll_counts)):
+        check(a == b, f"dryrun fidelity: fake {what} {a} != real {b}")
+    forecast = fake.peak_bytes
+    mem_err = abs(forecast - peak) / peak
+    check(mem_err <= DRYRUN_MEM_TOL,
+          f"dryrun fidelity: forecast peak {forecast} vs the card's "
+          f"{peak} ({mem_err:.1%} off)")
+    step, args, counted_s = res["step"], res["real_args"], res["step_s"]
+    del res
+    if cuda:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = step(*args)
+    if cuda:
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    loss = float(out[2]["loss"])
+    check(math.isfinite(loss), f"dryrun fidelity: loss {loss}")
+    del out, args, step
+    mf = model_flops(cfg, shape)
+    terms = ca.roofline_terms(fake.costs, model_flops_global=mf, n_chips=1)
+    bound_s = max(terms["t_compute_s"], terms["t_memory_s"],
+                  terms["t_collective_s"])
+    card = card_line() if cuda else "cpu"
+    fid = {"arch": DRYRUN_ARCH, "tokens": shape.global_batch
+           * shape.seq_len, "flops": fake.costs.flops,
+           "hbm_bytes": fake.costs.hbm_bytes, "ops": fake.n_ops,
+           "forecast_peak_bytes": forecast, "peak_bytes": peak,
+           "peak_err": mem_err, "counted_step_s": counted_s,
+           "step_s": step_s, "loss": loss, "model_flops": mf,
+           "achieved_tflops": mf / step_s / 1e12,
+           "share_of_989": mf / step_s / BF16_FLOPS_PER_S,
+           "roofline_bound_s": bound_s, "dominant": terms["dominant"],
+           "bound_over_measured": bound_s / step_s, "card": card}
+    log(json.dumps({"phase": "dryrun_fidelity", **fid}))
+    del fake, real
+    if cuda:
+        free_cuda()
+    rec = None
+    if cell:
+        rec = dryrun.run_cell(DRYRUN_ARCH, "train_4k", True, device=device,
+                              verbose=False)
+        check(rec["status"] == "ok", f"dryrun cell: {rec}")
+        log(json.dumps({"phase": "dryrun_cell", **rec}))
+    secs = time.perf_counter() - t0
+    log(f"dryrun phase: {secs:.1f} s")
+    if cuda:
+        check(secs <= DRYRUN_LIMIT_S,
+              f"dryrun phase took {secs:.1f} s > {DRYRUN_LIMIT_S} s")
+    return {"fidelity": fid, "cell": None if rec is None else {
+        k: rec[k] for k in ("arch", "shape", "mesh", "n_chips",
+                            "trace_seconds", "memory", "cost")}
+        | {"roofline": {k: rec["roofline"][k] for k in (
+            "t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+            "roofline_fraction", "useful_mfu_bound")}},
+        "seconds": secs}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4280,6 +4398,7 @@ def main() -> int:
         ring = run_ring_local()
         moe_ep = check_moe_ep_local()
         moe_ep["remat_binding"] = check_remat_binding()
+        dry = run_dryrun_paths()
         nccl = run_ring_nccl()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}",
@@ -4293,6 +4412,7 @@ def main() -> int:
     log(json.dumps({"ring_local": ring, "card": card}))
     log(json.dumps({"moe_ep_local": moe_ep, "card": card}))
     log(json.dumps({"ring_nccl": nccl, "card": card}))
+    log(json.dumps({"dryrun": dry, "card": card}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,11 +29,17 @@ for a new P once.  Params and optimizer state stay on each rank's
 device across a re-mesh (the JAX package re-places them on the new
 mesh).
 
-The dense tensor-parallel and ZeRO placements of
-``sharding.param_specs`` are not applied: on a ``model`` or ``data``
-axis dense parameters stay replicated, which computes the same
-function.  The expert-parallel MoE (``models.layers``) runs over the
-``model`` axis when the mesh has no pod axis.
+Parameters are placed or replicated as the caller gives them.
+Replicated (plain tensors), a ``data`` axis splits each batch and an
+``all_reduce`` averages the gradients, and the expert-parallel MoE
+(``models.layers``) runs over the ``model`` axis when the mesh has no
+pod axis.  Placed (DTensors of ``sharding.param_specs`` on the pod's
+``data`` x ``model`` sub-mesh, ``sharding.distribute_tree``), the
+pod's batch becomes a DTensor split over ``data`` and DTensor's
+backward already reduces the gradients to the parameters' placements;
+a rank's gradient row holds its local shards, which the ring carries
+to the same shard of every other pod, as JAX's ``shard_map`` ring
+carries a device's.  The optimizer state takes the same placements.
 
 The step updates params and optimizer state in place (see
 ``optim.adamw``); at full width on one device (qwen3-1.7b, P = 2) it
@@ -51,8 +57,14 @@ from repro_torch.dist.torrent import (GroupTransport, _unflatten,
 from repro_torch.launch.mesh import pod_axis_size
 from repro_torch.models import decode_step, train_loss
 from repro_torch.optim import adamw_update
-from repro_torch.sharding.api import DEFAULT_RULES, axis_rules, axis_sizes
+from repro_torch.sharding.api import (DEFAULT_RULES, axis_rules, axis_sizes,
+                                      is_dtensor)
 from repro_torch.tree import flatten, unflatten
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
 
 
 def _value_and_grad(loss_fn, leaves, treedef, inp, lab):
@@ -62,6 +74,13 @@ def _value_and_grad(loss_fn, leaves, treedef, inp, lab):
     # gets a zero gradient, as jax.grad gives it
     grads = torch.autograd.grad(loss, req, allow_unused=True,
                                 materialize_grads=True)
+    # a DTensor gradient may come back Partial (summed over the batch
+    # split) or laid out otherwise: bring it to its parameter's layout
+    grads = tuple(g.redistribute(l.device_mesh, l.placements)
+                  if is_dtensor(g) and g.placements != l.placements else g
+                  for g, l in zip(grads, leaves))
+    if is_dtensor(loss):
+        loss = loss.full_tensor()
     return loss.detach(), grads
 
 
@@ -69,6 +88,7 @@ def _write_row(out: torch.Tensor, grads, *, accumulate: bool) -> None:
     """Copy (or add) gradient leaves into a flat f32 row, in leaf order."""
     off = 0
     for g in grads:
+        g = _local(g)
         n = g.numel()
         dst = out[off:off + n]
         if accumulate:
@@ -90,33 +110,34 @@ def _n_microbatches(b: int, microbatch: int) -> int:
 
 
 def _microbatched_value_and_grad(loss_fn, params, inp, lab,
-                                 microbatch: int, out=None):
+                                 microbatch: int, out=None, place=None):
     """d loss / d params, accumulated over microbatches when enabled.
 
     ``loss_fn(params, inputs, labels)``.  Returns ``(loss, grads)``.
     With ``out`` (a flat f32 row of D values) the gradient is written
     there in leaf order and ``grads`` is None.  Accumulated gradients
     are f32, as in the JAX code; an unsplit gradient keeps the params'
-    dtype.
+    dtype.  ``place(inp, lab)`` lays out each (micro)batch.
     """
     leaves, treedef = flatten(params)
     nmb = _n_microbatches(inp.shape[0], microbatch)
+    place = place or (lambda x, y: (x, y))
     if nmb == 0:
-        loss, grads = _value_and_grad(loss_fn, leaves, treedef, inp, lab)
+        loss, grads = _value_and_grad(loss_fn, leaves, treedef,
+                                      *place(inp, lab))
         if out is None:
             return loss, unflatten(treedef, list(grads))
         _write_row(out, grads, accumulate=False)
         return loss, None
     if out is None:
-        acc = [torch.zeros(l.shape, dtype=torch.float32, device=l.device)
-               for l in leaves]
+        acc = [torch.zeros_like(l, dtype=torch.float32) for l in leaves]
     else:
         out.zero_()
     acc_l = torch.zeros((), dtype=torch.float32, device=inp.device)
     for i in range(nmb):
         sl = slice(i * microbatch, (i + 1) * microbatch)
-        loss, grads = _value_and_grad(loss_fn, leaves, treedef, inp[sl],
-                                      lab[sl])
+        loss, grads = _value_and_grad(loss_fn, leaves, treedef,
+                                      *place(inp[sl], lab[sl]))
         acc_l = acc_l + loss
         if out is None:
             for a, g in zip(acc, grads):
@@ -134,12 +155,48 @@ def _microbatched_value_and_grad(loss_fn, params, inp, lab,
 def _row_meta(params, b: int, microbatch: int):
     """``_unflatten``'s meta for a gradient row of ``params``: the
     aggregate takes the params' dtypes, or f32 where microbatches
-    accumulate, as the JAX step's gradients do."""
+    accumulate, as the JAX step's gradients do.  DTensor leaves give
+    their local shards' shapes."""
     leaves, treedef = flatten(params)
+    leaves = [_local(l) for l in leaves]
     split = _n_microbatches(b, microbatch) > 0
     return (treedef, [tuple(l.shape) for l in leaves],
             [torch.float32 if split else l.dtype for l in leaves],
             sum(l.numel() for l in leaves))
+
+
+def _placed_like(agg, params):
+    """The aggregate's local tensors as DTensors laid out as ``params``
+    (plain leaves pass)."""
+    from torch.distributed.tensor import DTensor
+    out = [DTensor.from_local(a, p.device_mesh, p.placements,
+                              run_check=False, shape=p.shape,
+                              stride=p.stride()) if is_dtensor(p) else a
+           for a, p in zip(flatten(agg)[0], flatten(params)[0])]
+    return unflatten(flatten(params)[1], out)
+
+
+def _placed_batch(params, inp, lab):
+    """A pod's batch as DTensors on the parameters' mesh, split over
+    ``data`` (this rank's slice already taken), or as given when the
+    parameters are plain."""
+    first = flatten(params)[0][0]
+    if not is_dtensor(first):
+        return inp, lab
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    tm = first.device_mesh
+    pl = tuple(Shard(0) if n == "data" else Replicate()
+               for n in tm.mesh_dim_names)
+    return tuple(DTensor.from_local(t, tm, pl, run_check=False)
+                 for t in (inp, lab))
+
+
+def _any_mass(wn: torch.Tensor) -> bool:
+    """Whether a round has active mass.  Under fake tensors (a dry run)
+    the values are unknown and the update is traced, as a round with
+    mass runs it."""
+    from torch._subclasses.fake_tensor import is_fake
+    return True if is_fake(wn) else bool((wn > 0).any())
 
 
 def _data_shard(mesh, inp, lab):
@@ -196,10 +253,14 @@ def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
     def grad_row(params, inp, lab, out):
         """This rank's loss and gradient row for one pod's batch."""
         inp, lab = _data_shard(mesh, inp, lab)
-        loss, _ = _microbatched_value_and_grad(loss_fn, params, inp, lab,
-                                               microbatch, out=out)
+        placed = is_dtensor(flatten(params)[0][0])
+        loss, _ = _microbatched_value_and_grad(
+            loss_fn, params, inp, lab, microbatch, out=out,
+            place=lambda x, y: _placed_batch(params, x, y))
         loss = loss.float().reshape(1)
-        _data_mean(mesh, out, loss)
+        if not placed:
+            # placed gradients are reduced by DTensor's backward
+            _data_mean(mesh, out, loss)
         return loss[0]
 
     def step(params, opt, batch, weights, active):
@@ -220,11 +281,11 @@ def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
                 row = torch.empty(meta[3], dtype=torch.float32,
                                   device=inp.device)
                 loss = grad_row(params, inp, lab, row)
-                agg = _unflatten(row, meta)
+                agg = _placed_like(_unflatten(row, meta), params)
             params, opt = adamw_update(agg, opt, params, lr=lr)
             return params, opt, {"loss": loss, "lr": lr}
 
-        dev = flatten(params)[0][0].device
+        dev = _local(flatten(params)[0][0]).device
         weights = torch.as_tensor(weights, device=dev)
         active = torch.as_tensor(active, device=dev)
         p = inputs.shape[0]
@@ -238,7 +299,7 @@ def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
             flat, = ring_fedavg(GroupTransport.for_mesh(mesh), [blocks[0]],
                                 weights, active, compress=compress)
             del blocks
-            agg = _unflatten(flat, meta)
+            agg = _placed_like(_unflatten(flat, meta), params)
             del flat
             # every pod's loss, for the masked mean below
             losses = torch.zeros((p,), dtype=torch.float32, device=dev)
@@ -251,8 +312,8 @@ def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
                 grad_row(params, inputs[i], labels[i], rows[i, :d])
                 for i in range(p)])
             del rows
-            agg = aggregate_blocks(blocks, meta, weights, active,
-                                   compress=compress)
+            agg = _placed_like(aggregate_blocks(blocks, meta, weights, active,
+                                                compress=compress), params)
             del blocks
         wn = masked_weights(weights, active)
         # select (don't multiply): a pod masked because it diverged
@@ -262,7 +323,7 @@ def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
         # moments and the step counter stay untouched (zero grads would
         # still apply weight decay and advance the LR schedule).  Same
         # zero-mass definition as the aggregator's.
-        if bool((wn > 0).any()):
+        if _any_mass(wn):
             params, opt = adamw_update(agg, opt, params, lr=lr)
         return params, opt, {"loss": loss, "lr": lr}
 
@@ -330,7 +391,40 @@ def make_serve_step(cfg):
 
     def serve(params, caches, tokens, pos):
         logits, caches = decode_step(cfg, params, caches, tokens, pos)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = _argmax_vocab(logits).to(torch.int32)
         return nxt, logits, caches
 
     return serve
+
+
+def _argmax_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """``argmax`` over the last (vocabulary) dim.  For DTensor logits
+    split over ``model`` each rank takes its slice's max and index, and
+    one all-gather of those picks the first maximum, as ``argmax``
+    does, without gathering the logits."""
+    if not is_dtensor(logits):
+        return torch.argmax(logits, dim=-1)
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding.api import model_size, placements_like
+    tm = logits.device_mesh
+    last = logits.ndim - 1
+    batch = placements_like(logits, 0, None)
+    if model_size(logits) == 1:
+        out = torch.argmax(logits.redistribute(tm, batch).to_local(), -1)
+        return DTensor.from_local(out, tm, batch, run_check=False)
+    local = logits.redistribute(tm, placements_like(logits, 0, last))
+    local = local.to_local()
+    vals, idx = local.max(dim=-1)
+    grp = tm.get_group("model")
+    ms = model_size(logits)
+    idx = idx + tm.get_local_rank("model") * local.shape[-1]
+    both = torch.stack([vals.float(), idx.float()])
+    # the ranks' (2, ...) pairs concatenated along dim 0, as every
+    # backend takes an all-gather's output
+    every = torch.empty((ms * 2,) + tuple(both.shape[1:]),
+                        dtype=both.dtype, device=both.device)
+    dist.all_gather_into_tensor(every, both, group=grp)
+    every = every.view((ms,) + tuple(both.shape))
+    best = torch.argmax(every[:, 0], dim=0)         # first max: lowest rank
+    out = every[:, 1].gather(0, best[None])[0].long()
+    return DTensor.from_local(out, tm, batch, run_check=False)

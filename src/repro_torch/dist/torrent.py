@@ -157,8 +157,10 @@ class GroupTransport:
         self._next = ranks[(index + 1) % self.p]
         self._prev = ranks[(index - 1) % self.p]
         # NCCL carries CUDA tensors, gloo CPU tensors: never a silent
-        # staging copy through the host
-        self._kind = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+        # staging copy through the host (a dry run's fake group takes
+        # either)
+        self._kind = {"nccl": "cuda", "gloo": "cpu"}.get(
+            dist.get_backend(group))
 
     @classmethod
     def for_mesh(cls, mesh) -> GroupTransport:
@@ -173,7 +175,7 @@ class GroupTransport:
         ops = []
         for j, (s, r) in enumerate(zip(sends, recvs)):
             for t in (s, r):
-                if t.device.type != self._kind:
+                if self._kind and t.device.type != self._kind:
                     raise ValueError(
                         f"a {t.device} tensor cannot travel over a "
                         f"{dist.get_backend(self.group)} group: NCCL "

@@ -10,6 +10,12 @@ nothing falls back to the plain versions.
 ``LAUNCHES`` counts, per kernel, the calls in which its wrapper
 launched it on the card; ``chip_smoke.py`` resets it before driving
 the train step and reads it after, to show the step ran the kernels.
+
+A fake tensor (``FakeTensorMode``: the dry run's stand-ins, which
+claim a device but hold no data) has nothing to launch on: a wrapper
+given one traces its plain version, which gives the outputs' shapes
+and lets ``launch.cost_analysis`` count the work; no launch is counted
+(``plain_route``).
 """
 from __future__ import annotations
 
@@ -44,6 +50,15 @@ def extension():
                     extra_cuda_cflags=CUDA_FLAGS,
                     build_directory=str(BUILD_DIR))
     return _ext
+
+
+def plain_route(x) -> bool:
+    """Whether a wrapper runs its plain version on ``x``: a CPU tensor,
+    or a fake one."""
+    if x.device.type == "cpu":
+        return True
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(x)
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -89,7 +89,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: int = 512) -> torch.Tensor:
     """q (B, Hq, Tq, D); k, v (B, Hkv, Tk, D) -> (B, Hq, Tq, D) in
     ``q.dtype``.  ``block_q`` sizes only the plain version's chunks."""
-    if q.device.type == "cpu":
+    if _build.plain_route(q):
         return ref.attention_qchunk(q, k, v, causal=causal, window=window,
                                     softcap=softcap, q_offset=q_offset,
                                     kv_offset=kv_offset, scale=scale,

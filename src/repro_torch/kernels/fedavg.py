@@ -32,7 +32,7 @@ def fedavg_reduce(updates: torch.Tensor, weights, active) -> torch.Tensor:
     ``updates.dtype`` and accumulated in f32."""
     weights = torch.as_tensor(weights, device=updates.device)
     active = torch.as_tensor(active, device=updates.device)
-    if updates.device.type == "cpu":
+    if _build.plain_route(updates):
         return ref.fedavg_reduce(updates, weights, active)
     _build.require_cuda("fedavg_reduce", updates, weights, active)
     if updates.dim() != 2:

@@ -103,7 +103,7 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dh), m (B, H), all f32), from a zero state.  T must be a multiple of
     ``chunk``."""
     _check_shapes(q, k, v, i_pre, f_pre, chunk)
-    if q.device.type == "cpu":
+    if _build.plain_route(q):
         return ref.mlstm_chunkwise(q, k, v, i_pre, f_pre, chunk=chunk)
     _build.require_cuda("mlstm_chunkwise", q, k, v, i_pre, f_pre)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:

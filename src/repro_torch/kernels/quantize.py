@@ -34,7 +34,7 @@ def _check_2d(name: str, t: torch.Tensor, dtype) -> tuple[int, int]:
 
 def chunk_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (n_chunks, E) f32 -> (int8 codes (n, E), f32 scales (n, 1))."""
-    if x.device.type == "cpu":
+    if _build.plain_route(x):
         return ref.chunk_quantize(x)
     _build.require_cuda("chunk_quantize", x)
     n, e = _check_2d("chunk_quantize", x, torch.float32)
@@ -59,7 +59,7 @@ def chunk_dequantize(q: torch.Tensor, scale: torch.Tensor, *,
     """
     if out is not None:
         dtype = out.dtype
-    if q.device.type == "cpu":
+    if _build.plain_route(q):
         res = ref.chunk_dequantize(q, scale).to(dtype)
         return res if out is None else out.copy_(res)
     _build.require_cuda("chunk_dequantize", q, scale,

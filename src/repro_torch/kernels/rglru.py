@@ -63,7 +63,7 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor, gate_x: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """x, a, gate_x (B, T, D); h0 (B, D) f32 or None -> (y (B, T, D) in
     ``x.dtype``, h_T (B, D) f32)."""
-    if x.device.type == "cpu":
+    if _build.plain_route(x):
         return ref.rglru(x, a, gate_x, h0)
     _build.require_cuda("rglru_scan", x, a, gate_x,
                         *(() if h0 is None else (h0,)))

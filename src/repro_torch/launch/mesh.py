@@ -26,9 +26,19 @@ Without an initialised process group the world is this one process
 (rank 0, world size 1), so a mesh of size 1 builds and a larger one
 raises ``ValueError``, as the JAX package does with too few devices.
 Importing this module touches no process group.
+
+A mesh also carries a ``torch.distributed`` device mesh over its axes
+of size > 1 (``dtensor_mesh``, built from the same groups), which
+DTensor placements need.  ``fake_world(n)`` is the dry run's world:
+this process is rank 0 of n ranks on the ``fake`` backend, whose
+collectives move nothing, as JAX's placeholder host devices stand in
+for a pod.  The group cache is keyed by the world, and leaving a fake
+world drops its groups, so a real run after a dry run in the same
+process gets real groups.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
@@ -39,8 +49,10 @@ import torch.distributed as dist
 
 from repro_torch.sharding.api import axis_sizes
 
-# (shape, axis names, ranks) -> {(axis, line index): ProcessGroup}
+# (world, shape, axis names, ranks) -> {(axis, line index): ProcessGroup}
 _GROUPS: dict = {}
+# the device type fake tensors claim in a fake world, or None
+_FAKE_DEVICE: list = [None]
 
 
 def world() -> tuple[int, int]:
@@ -76,6 +88,52 @@ def init_distributed(device="cuda", *, init_method: str = "env://",
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size)
     return dev
+
+
+def _world_key():
+    """Identifies the default process group, so cached groups never
+    outlive the world they were made in."""
+    if dist.is_available() and dist.is_initialized():
+        return (id(dist.group.WORLD), dist.get_world_size())
+    return None
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, device="cpu"):
+    """This process as rank 0 of ``world_size`` ranks on the ``fake``
+    backend, for the duration of the block.
+
+    Collectives run on every tensor kind (fake tensors among them) and
+    move nothing.  ``device`` is the device type the dry run's fake
+    tensors claim; meshes made inside build their DTensor meshes for
+    it.  On exit the default group is destroyed and every cached group
+    dropped.  Refuses to start inside another world.
+    """
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised; a "
+                           "fake world needs a process of its own")
+    # importing torch's testing helper registers the backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    store = FakeStore()
+    _GROUPS.clear()               # groups of a world that has ended
+    dist.init_process_group("fake", store=store, rank=0,
+                            world_size=world_size)
+    _FAKE_DEVICE[0] = torch.device(device).type
+    try:
+        yield
+    finally:
+        _FAKE_DEVICE[0] = None
+        _GROUPS.clear()
+        dist.destroy_process_group()
+
+
+def _device_type() -> str:
+    """The device type DTensors of this world live on."""
+    if _FAKE_DEVICE[0] is not None:
+        return _FAKE_DEVICE[0]
+    if dist.is_initialized() and dist.get_backend() == "nccl":
+        return "cuda"
+    return "cpu"
 
 
 class DeviceMesh:
@@ -119,6 +177,49 @@ class DeviceMesh:
     def is_member(self) -> bool:
         return self.coords is not None
 
+    @property
+    def dtensor_mesh(self):
+        """A ``torch.distributed`` device mesh over this mesh's axes of
+        size > 1, with their names and this mesh's groups; None when
+        every axis has size 1.  Built once, on first use; needs a
+        member rank."""
+        if "_tmesh" not in self.__dict__:
+            self._tmesh = self._build_dtensor_mesh()
+        return self._tmesh
+
+    def _build_dtensor_mesh(self):
+        from torch.distributed.device_mesh import DeviceMesh as TorchMesh
+        axes = [i for i, n in enumerate(self.axis_names)
+                if self.shape[n] > 1]
+        if not axes:
+            return None
+        if not self.is_member:
+            raise ValueError(f"rank {self.rank} is outside {self}")
+        names = tuple(self.axis_names[i] for i in axes)
+        drop = tuple(i for i in range(len(self.axis_names))
+                     if i not in axes)
+        ranks = self.devices.reshape(
+            tuple(self.devices.shape[i] for i in axes)) if drop else \
+            self.devices
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        with unset_fake_temporarily():     # the mesh's own rank tensors
+            return TorchMesh.from_group(
+                [self.groups[n] for n in names], _device_type(),
+                mesh=torch.as_tensor(ranks, dtype=torch.int64),
+                mesh_dim_names=names)
+
+    def submesh(self, names):
+        """The ``torch.distributed`` mesh of this rank's line over the
+        named axes (those of size > 1), or None."""
+        tm = self.dtensor_mesh
+        keep = tuple(n for n in names if n in (tm.mesh_dim_names
+                                                if tm else ()))
+        if not keep:
+            return None
+        if keep == tuple(tm.mesh_dim_names):
+            return tm
+        return tm[keep]
+
     def __repr__(self) -> str:
         return (f"DeviceMesh({self.shape}, ranks "
                 f"{self.devices.reshape(-1).tolist()}, rank {self.rank})")
@@ -127,7 +228,8 @@ class DeviceMesh:
 def _axis_groups(devices: np.ndarray, axis_names) -> dict:
     """The process group of every line along every axis of size > 1,
     created on every rank in one order and cached per grid."""
-    key = (devices.shape, tuple(axis_names), tuple(devices.reshape(-1)))
+    key = (_world_key(), devices.shape, tuple(axis_names),
+           tuple(devices.reshape(-1)))
     if key in _GROUPS:
         return _GROUPS[key]
     out = {}
@@ -180,6 +282,6 @@ def pod_axis_size(mesh) -> int:
     return 1 if mesh is None else int(axis_sizes(mesh).get("pod", 1))
 
 
-__all__ = ["DeviceMesh", "init_distributed", "make_host_mesh",
+__all__ = ["DeviceMesh", "fake_world", "init_distributed", "make_host_mesh",
            "make_pod_mesh", "make_production_mesh", "pod_axis_size",
            "world"]

@@ -15,9 +15,10 @@ worker is one rank (one GPU with NCCL, one CPU process with gloo for
 ``--device cpu``), and the driver builds ``make_pod_mesh(p,
 data=world // peak)`` over the first ranks, as the JAX driver builds
 it over the first devices: every rank computes its pod's gradient and
-the torrent ring aggregates.  Dense parameters stay replicated (the
-tensor-parallel and ZeRO placements of ``sharding.param_specs`` are
-not applied).
+the torrent ring aggregates.  Here parameters stay replicated;
+the step also takes them placed by ``sharding.param_specs`` as DTensors
+(``sharding.distribute_tree``), which the dry run
+(``launch.dryrun``) and the tests' gloo grids run.
 
 ``--drop-pod`` is the recovery drill: at ``--drop-at`` (default
 steps/2) the run checkpoints, shrinks the collective from P to P-1

@@ -34,6 +34,17 @@ it runs expert-parallel instead (``_moe_ffn_ep``, JAX's
 ``_moe_ffn_shardmap``): each rank of the ``model`` group routes its
 tokens over the full router table to its own slice of the experts, and
 one ``all_reduce`` sums the partial outputs.
+
+Given DTensor parameters and activations (``sharding.distribute_tree``
+of ``param_specs``; the dry run and the placed FL step), the layers
+restore JAX's ``logical_constraint`` calls (q, k, v on heads and kv,
+the FFN's hidden on ffn, each block's output on batch) and run every
+computation that is per example and per head or channel on the local
+shards (``_lmap``): attention over this rank's heads (or, for a decode
+cache split along head_dim, over its slice of head_dim, the scores
+summed over the ``model`` group), the RG-LRU scan, the mLSTM and the
+sLSTM recurrences.  A moe layer runs ``_moe_ffn_ep``'s local blocks on
+the local expert tables.  Plain tensors take none of these branches.
 """
 from __future__ import annotations
 
@@ -45,9 +56,13 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, ref
-from repro_torch.sharding.api import axis_rules, axis_sizes, current_rules
+from repro_torch.sharding.api import (axis_rules, axis_sizes, constrain,
+                                      current_rules, is_dtensor, local_map,
+                                      logical_constraint, model_size,
+                                      placements_like)
 
-from .common import causal_conv1d, dense_init, rms_norm, rope, torch_dtype
+from .common import (_CopyToGroup, _ReduceFromGroup, causal_conv1d,
+                     dense_init, rms_norm, rope, torch_dtype)
 from .config import ArchConfig
 
 ATTN_KINDS = ("global", "local", "moe")
@@ -120,6 +135,27 @@ def _chunked_scan(step, init, xs, *, chunk: int, remat: bool):
     return carry, torch.cat(ys)
 
 
+def _lmap(like, fn, args, layouts, out_layouts, units: int):
+    """``fn`` on the local shards of DTensor ``args`` (``local_map``).
+
+    A layout is ``(batch_dim, unit_dim)``: the batch dim is split as
+    ``like``'s dim 0 is, the unit dim (heads, channels) over ``model``
+    when ``units`` divide over it, else every ``model`` rank computes
+    all of them.  None passes an arg as it is; ``out_layouts`` is one
+    layout or a list of them (None for an output left plain).
+    """
+    split = units % model_size(like) == 0
+
+    def pl(lay):
+        if lay is None:
+            return None
+        return placements_like(like, lay[0], lay[1] if split else None)
+    outs = ([pl(o) for o in out_layouts] if isinstance(out_layouts, list)
+            else pl(out_layouts))
+    return local_map(fn, args, [pl(l) for l in layouts], outs,
+                     like.device_mesh)
+
+
 # ======================================================================
 # Attention layers (global / local / moe)
 # ======================================================================
@@ -163,6 +199,41 @@ def _init_attn(cfg: ArchConfig, kind: str, gen: torch.Generator,
     return p
 
 
+def _pin(y):
+    """A projection's output pinned to (batch, ..., features on
+    ``model``), or to the batch split alone where the features do not
+    divide over ``model``; its gradient too.  Left alone, DTensor may
+    reduce a partial product by scattering it along the sequence, which
+    a later reshape cannot follow.  The identity on plain tensors."""
+    if not is_dtensor(y):
+        return y
+    last = y.ndim - 1
+    split = y.shape[last] % model_size(y) == 0
+    return constrain(y, placements_like(y, 0, last if split else None))
+
+
+def _branch(y):
+    """A residual branch's output pinned to ("batch", "seq", None)
+    before it joins the stream.  On DTensors this sums a row-parallel
+    projection's partial output over ``model`` (Megatron's reduction),
+    where DTensor alone might scatter it along the sequence; on plain
+    tensors it is the identity."""
+    return logical_constraint(y, "batch", "seq", None)
+
+
+def _split_heads(y, n: int, dh: int):
+    """(B, T, n * dh) -> (B, T, n, dh).  A DTensor whose last dim is
+    split over ``model`` into pieces that are not whole heads (n not
+    divisible by the axis) is gathered along it first."""
+    b, t = y.shape[:2]
+    if is_dtensor(y) and n % model_size(y):
+        names = tuple(y.device_mesh.mesh_dim_names)
+        if not y.placements[names.index("model")].is_replicate():
+            y = y.redistribute(y.device_mesh,
+                               placements_like(y, 0, None))
+    return y.reshape(b, t, n, dh)
+
+
 def _prefill_cache(window, k, v, cache):
     """Write what prefill leaves into ``cache``: all keys (global), or
     the last ``window`` keys left-padded with zeros (local)."""
@@ -186,12 +257,15 @@ def _attention_mix(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor,
     window = cfg.window if kind == "local" else None
     impl = _impl(cfg.attn_impl)
 
-    q = (h @ p["wq"]).reshape(b, t, hq, dh).transpose(1, 2)
-    k = (h @ p["wk"]).reshape(b, t, hkv, dh).transpose(1, 2)
-    v = (h @ p["wv"]).reshape(b, t, hkv, dh).transpose(1, 2)
+    q = _split_heads(_pin(h @ p["wq"]), hq, dh).transpose(1, 2)
+    k = _split_heads(_pin(h @ p["wk"]), hkv, dh).transpose(1, 2)
+    v = _split_heads(_pin(h @ p["wv"]), hkv, dh).transpose(1, 2)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = logical_constraint(q, "batch", "heads", None, None)
+    k = logical_constraint(k, "batch", "kv", None, None)
+    v = logical_constraint(v, "batch", "kv", None, None)
 
     if mode == "decode":
         positions = torch.full((t,), pos, dtype=torch.int32, device=h.device)
@@ -213,60 +287,118 @@ def _attention_mix(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor,
             cv[:, :, pos:pos + 1] = v.to(cv.dtype)
             kv_offset = 0
         new_cache = cache
-        out = ops.attention(
+        out = _attention(
             q, ck, cv, causal=True, window=window,
             softcap=cfg.attn_softcap, q_offset=pos, kv_offset=kv_offset,
             impl=impl, block_q=cfg.block_q, block_k=cfg.block_k)
     else:
-        out = ops.attention(
+        out = _attention(
             q, k, v, causal=cfg.causal, window=window,
             softcap=cfg.attn_softcap, impl=impl, block_q=cfg.block_q,
             block_k=cfg.block_k)
         if mode == "prefill":
             new_cache = _prefill_cache(window, k, v, cache)
 
-    out = out.transpose(1, 2).reshape(b, t, hq * dh)
     return out @ p["wo"], new_cache
 
 
+def _attention(q, k, v, **kw):
+    """``ops.attention`` with the heads merged: (B, T, Hq * D).  On
+    DTensors it runs over this rank's shards, and the heads are merged
+    there too (a merge of heads that do not divide over ``model`` is no
+    DTensor view).
+
+    Head-parallel where the ``model`` axis divides the query heads: this
+    rank's query heads, and its kv heads (sharded too where they divide,
+    else sliced from the replicated kv to the heads its queries read).
+    A decode cache split along head_dim (too few kv heads,
+    ``launch.specs.cache_specs``) runs ``_decode_attention_dh``.  Else
+    every ``model`` rank computes all heads.
+    """
+    if not is_dtensor(q):
+        return _merge_heads(ops.attention(q, k, v, **kw))
+    tm = q.device_mesh
+    names = tuple(tm.mesh_dim_names)
+    ms = model_size(q)
+    if ms > 1 and is_dtensor(k) and \
+            k.placements[names.index("model")].is_shard(3):
+        return _decode_attention_dh(q, k, v, **kw)
+    hq, hkv = q.shape[1], k.shape[1]
+    group = hq // hkv
+    hq_loc = hq // ms
+    split_q = ms > 1 and hq % ms == 0 and (
+        hkv % ms == 0 or hq_loc % group == 0 or group % hq_loc == 0)
+    split_kv = split_q and hkv % ms == 0
+    r = tm.get_local_rank("model") if split_q else 0
+
+    def fn(ql, kl, vl):
+        if split_q and not split_kv:
+            lo = (r * hq_loc) // group
+            n = max(1, hq_loc // group)
+            kl, vl = kl[:, lo:lo + n], vl[:, lo:lo + n]
+        return _merge_heads(ops.attention(ql, kl, vl, **kw))
+    q_pl = placements_like(q, 0, 1 if split_q else None)
+    kv_pl = placements_like(q, 0, 1 if split_kv else None)
+    return local_map(fn, (q, k, v), (q_pl, kv_pl, kv_pl),
+                     placements_like(q, 0, 2 if split_q else None), tm)
+
+
+def _merge_heads(o):
+    """(B, H, T, D) -> (B, T, H * D)."""
+    b, h, t, d = o.shape
+    return o.transpose(1, 2).reshape(b, t, h * d)
+
+
+@torch.no_grad()
+def _decode_attention_dh(q, k, v, *, causal, window, softcap, q_offset,
+                         kv_offset, scale=None, **_):
+    """Decode attention over a cache split along head_dim on ``model``.
+
+    Each rank contracts its slice of head_dim (q is split to match), the
+    scores are summed over the ``model`` group, and each rank forms its
+    slice of the output (then laid out by heads and merged): what GSPMD
+    does with a contracted sharded dim.
+    The plain attention's math (``ref.attention_qchunk``): f32 scores,
+    softcap, mask, softmax, zero rows with no live key.
+    """
+    tm = q.device_mesh
+    grp = tm.get_group("model")
+    d = q.shape[-1]
+    sc = (d ** -0.5) if scale is None else scale
+
+    def fn(ql, kl, vl):
+        b, hq, tq, dl = ql.shape
+        hkv, tk = kl.shape[1], kl.shape[2]
+        qg = ql.float().reshape(b, hkv, hq // hkv, tq, dl)
+        s = torch.einsum("bkgqd,bktd->bkgqt", qg, kl.float())
+        dist.all_reduce(s, group=grp)
+        s = s * sc
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        mask = ref.attention_mask(tq, tk, causal=causal, window=window,
+                                  q_offset=q_offset, kv_offset=kv_offset,
+                                  device=ql.device)
+        s = torch.where(mask, s, ref.NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        pr = torch.where(mask.any(-1)[:, None], pr, 0.0)
+        o = torch.einsum("bkgqt,bktd->bkgqd", pr, vl.float())
+        return o.reshape(b, hq, tq, dl).to(ql.dtype)
+    pl = placements_like(q, 0, 3)
+    out = local_map(fn, (q, k, v), (pl, pl, pl), pl, tm)
+    # back to heads (the output projection's rows), then merged
+    split = q.shape[1] % model_size(q) == 0
+    out = out.redistribute(tm, placements_like(q, 0, 1 if split else None))
+    return local_map(_merge_heads, (out,), (out.placements,),
+                     placements_like(q, 0, 2 if split else None), tm)
+
+
 def _dense_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
-    g = _act(cfg.act)(h @ p["w_gate"]) * (h @ p["w_up"])
+    g = _act(cfg.act)(_pin(h @ p["w_gate"])) * _pin(h @ p["w_up"])
+    g = logical_constraint(g, "batch", None, "ffn")
     return g @ p["w_down"]
 
 
 MOE_TOKEN_BLOCK = 8192
-
-
-class _CopyToGroup(torch.autograd.Function):
-    """A replicated input that every rank of ``group`` uses: the forward
-    is the identity, the backward sums the ranks' gradients."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _ReduceFromGroup(torch.autograd.Function):
-    """Partial outputs of ``group``'s ranks summed: the forward is an
-    ``all_reduce``, the backward the identity (every rank then holds the
-    same sum and receives the same gradient)."""
-
-    @staticmethod
-    def forward(ctx, y, group):
-        y = y.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
 
 
 def _moe_ffn_ep(cfg: ArchConfig, p: dict, h: torch.Tensor, mesh):
@@ -282,8 +414,8 @@ def _moe_ffn_ep(cfg: ArchConfig, p: dict, h: torch.Tensor, mesh):
     ``all_reduce`` sums the partial outputs.  The tokens, the router and
     the expert tables enter through ``_CopyToGroup``, so their
     gradients are the sums over the group: the single-device ones, on
-    every rank (the experts' tables are replicated, as every dense
-    parameter of the port is).
+    every rank (the tables are plain, replicated tensors here; placed
+    tables take ``_moe_ffn_dtensor``).
 
     Returns None where the JAX package falls back to ``_moe_ffn``'s
     blocked path: no ``model`` axis larger than 1, experts not divisible
@@ -347,9 +479,11 @@ def _moe_local_block(cfg: ArchConfig, x_loc, router, wg, wu, wd,
     buf = torch.zeros((e_loc * cap + 1, d), dtype=x_loc.dtype, device=dev)
     buf = buf.index_put((dest,), x_loc[src_token])
     buf = buf[:-1].reshape(e_loc, cap, d)
+    buf = logical_constraint(buf, "expert", None, None)
     g = torch.bmm(buf, wg)
     u = torch.bmm(buf, wu)
     y = torch.bmm(_act(cfg.act)(g) * u, wd)
+    y = logical_constraint(y, "expert", None, None)
     y = torch.cat([y.reshape(e_loc * cap, d),
                    torch.zeros((1, d), dtype=x_loc.dtype, device=dev)])
     slot = torch.empty_like(dest).scatter_(0, order, dest)
@@ -371,6 +505,8 @@ def _moe_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     JAX's ``jax.checkpoint`` over ``lax.map``, so the capacity buffers
     of one block at a time are live.
     """
+    if is_dtensor(p["moe_gate"]):
+        return _moe_ffn_dtensor(cfg, p, h)
     state = current_rules()
     if state is not None and state[1] is not None:
         out = _moe_ffn_ep(cfg, p, h, state[1])
@@ -392,6 +528,51 @@ def _moe_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     out = [checkpointed(fn, xb) if remat else fn(xb)
            for xb in xf.split(block)]
     return torch.cat(out).reshape(b, t, d)
+
+
+def _moe_ffn_dtensor(cfg: ArchConfig, p: dict, h) -> torch.Tensor:
+    """The MoE FFN over DTensors: ``_moe_ffn_ep``'s local blocks.
+
+    Each rank routes its batch shard's tokens over the full router
+    table to its own ``n_experts / model`` experts (the expert tables
+    gathered along any ZeRO split first, as FSDP gathers them), and the
+    partial outputs are summed over the ``model`` group.  Where the
+    ``model`` axis does not divide the experts every rank runs all of
+    them.  Gradients take ``Partial`` placements where ranks saw
+    different tokens or experts, so DTensor reduces them.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    tm = h.device_mesh
+    names = tuple(tm.mesh_dim_names)
+    ms = model_size(h)
+    ep = ms > 1 and cfg.n_experts % ms == 0
+    b, t, d = h.shape
+    batch = placements_like(h, 0, None)
+    split = [pl == Shard(0) for pl in batch]
+
+    def grads(on_model):
+        return tuple(on_model if n == "model" else
+                     Partial() if sp else Replicate()
+                     for n, sp in zip(names, split))
+    part = Partial() if ep else Replicate()
+    xl = h.redistribute(tm, batch).to_local(
+        grad_placements=tuple(part if n == "model" else pl
+                              for n, pl in zip(names, batch)))
+    router = p["router"].redistribute(tm, (Replicate(),) * tm.ndim)
+    router = router.to_local(grad_placements=grads(part))
+    w_pl = tuple(Shard(0) if (n == "model" and ep) else Replicate()
+                 for n in names)
+    ws = [p[k].redistribute(tm, w_pl).to_local(
+        grad_placements=grads(w_pl[names.index("model")]
+                              if "model" in names else Replicate()))
+          for k in ("moe_gate", "moe_up", "moe_down")]
+    g_id = tm.get_local_rank("model") if ep else 0
+    y = _moe_local_block(cfg, xl.reshape(-1, d), router, *ws, g_id)
+    out_pl = tuple(part if n == "model" else pl
+                   for n, pl in zip(names, batch))
+    y = DTensor.from_local(y.reshape(xl.shape), tm, out_pl,
+                           run_check=False)
+    return y.redistribute(tm, batch)
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -423,12 +604,13 @@ def _apply_attn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
     attn, new_cache = _attention_mix(cfg, kind, p, h, mode, cache, pos)
     if cfg.post_norm:
         attn = rms_norm(attn, p["post_ln1"], cfg.norm_eps)
-    x = x + attn
+    x = x + _branch(attn)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     ff = _moe_ffn(cfg, p, h) if kind == "moe" else _dense_ffn(cfg, p, h)
     if cfg.post_norm:
         ff = rms_norm(ff, p["post_ln2"], cfg.norm_eps)
-    return x + ff, new_cache
+    x = logical_constraint(x + _branch(ff), "batch", "seq", None)
+    return x, new_cache
 
 
 # ======================================================================
@@ -464,8 +646,8 @@ def _init_rglru(cfg: ArchConfig, gen: torch.Generator, device=None) -> dict:
 def _apply_rglru(cfg: ArchConfig, p: dict, x: torch.Tensor, mode: str,
                  cache, pos):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    xr = h @ p["rg_in"]
-    xg = _gelu(h @ p["rg_gate"])
+    xr = _pin(h @ p["rg_in"])
+    xg = _gelu(_pin(h @ p["rg_gate"]))
     conv_state = cache["conv"] if mode == "decode" else None
     xc, new_conv = causal_conv1d(xr, p["conv_w"], conv_state)
 
@@ -476,11 +658,17 @@ def _apply_rglru(cfg: ArchConfig, p: dict, x: torch.Tensor, mode: str,
     softplus = torch.logaddexp(p["lam"], torch.zeros_like(p["lam"]))
     a = torch.exp(-RGLRU_C * softplus * r)
     h0 = cache["h"] if mode == "decode" else None
-    y, h_t = ops.rglru(xc, a.to(xc.dtype), i.to(xc.dtype), h0,
-                       impl=_impl(cfg.rnn_impl))
-    x = x + (xg * y) @ p["rg_out"]
+    impl = _impl(cfg.rnn_impl)
+    args = (xc, a.to(xc.dtype), i.to(xc.dtype), h0)
+    if is_dtensor(xc):
+        y, h_t = _lmap(xc, lambda *t: ops.rglru(*t, impl=impl), args,
+                       [(0, 2)] * 3 + [(0, 1)], [(0, 2), (0, 1)],
+                       xc.shape[2])
+    else:
+        y, h_t = ops.rglru(*args, impl=impl)
+    x = x + _branch((xg * y) @ p["rg_out"])
     hh = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + _dense_ffn(cfg, p, hh)
+    x = x + _branch(_dense_ffn(cfg, p, hh))
     if mode in ("decode", "prefill"):
         cache["h"].copy_(h_t)
         cache["conv"].copy_(new_conv)
@@ -542,7 +730,7 @@ def _apply_mlstm(cfg: ArchConfig, p: dict, x: torch.Tensor, mode: str,
     hh = cfg.rnn_heads
     dh = di // hh
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    xl = h @ p["up_l"]
+    xl = _pin(h @ p["up_l"])
     # The JAX layer also computes silu(h @ up_r) and never uses it (XLA
     # drops it); the port skips the product.  up_r's gradient is zero in
     # both packages.
@@ -550,28 +738,41 @@ def _apply_mlstm(cfg: ArchConfig, p: dict, x: torch.Tensor, mode: str,
     xc, new_conv = causal_conv1d(xl, p["conv_w"], conv_state)
 
     scale = dh ** -0.5
-    q = (xc @ p["wq_i"]).reshape(b, t, hh, dh).float() * scale
-    k = (xc @ p["wk_i"]).reshape(b, t, hh, dh).float() * scale
-    v = (xl @ p["wv_i"]).reshape(b, t, hh, dh).float()
-    i_pre = xc.float() @ p["wi"]                           # (B,T,H)
-    f_pre = xc.float() @ p["wf"] + 1.0
-    o = torch.sigmoid(xc @ p["wo_gate"])
+    q = _split_heads(_pin(xc @ p["wq_i"]), hh, dh).float() * scale
+    k = _split_heads(_pin(xc @ p["wk_i"]), hh, dh).float() * scale
+    v = _split_heads(_pin(xl @ p["wv_i"]), hh, dh).float()
+    i_pre = _pin(xc.float() @ p["wi"])                     # (B,T,H)
+    f_pre = _pin(xc.float() @ p["wf"]) + 1.0
+    o = torch.sigmoid(_pin(xc @ p["wo_gate"]))
 
+    def core(q, k, v, i_pre, f_pre, *state):
+        """The recurrence on (local) heads; h merged to (B, T, H*dh)."""
+        bl, tl = q.shape[:2]
+        if mode == "decode":
+            state, hs = ref.mlstm_step(
+                state, (q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0],
+                        f_pre[:, 0]))
+            return (*state, hs.reshape(bl, 1, -1))
+        if mode == "prefill":
+            state, hs = _mlstm_prefill(cfg, q, k, v, i_pre, f_pre)
+        else:
+            state, hs = ref.mlstm_chunkwise_torch(
+                q, k, v, i_pre, f_pre,
+                ref.mlstm_zero_state(bl, q.shape[2], dh, q.device),
+                chunk=MLSTM_CHUNK, remat=True)
+        return (*state, hs.reshape(bl, tl, -1))
+
+    args = (q, k, v, i_pre, f_pre)
     if mode == "decode":
-        state = (cache["C"], cache["n"], cache["m"])
-        state, hs = ref.mlstm_step(
-            state, (q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0]))
-        hs = hs[:, None]                                   # (B,1,H,dh)
-    elif mode == "prefill":
-        state, hs = _mlstm_prefill(cfg, q, k, v, i_pre, f_pre)
+        args += (cache["C"], cache["n"], cache["m"])
+    if is_dtensor(q):
+        *state, hs = _lmap(q, core, args, [(0, 2)] * 5 + [(0, 1)] * 3,
+                           [(0, 1)] * 3 + [(0, 2)], hh)
     else:
-        state, hs = ref.mlstm_chunkwise_torch(
-            q, k, v, i_pre, f_pre, ref.mlstm_zero_state(b, hh, dh, x.device),
-            chunk=MLSTM_CHUNK, remat=True)
-    hs = hs.reshape(b, t, di)
+        *state, hs = core(*args)
 
     y = (o * hs.to(o.dtype)) @ p["down"]
-    x = x + y
+    x = x + _branch(y)
     if mode in ("decode", "prefill"):
         for name, new in zip(("C", "n", "m"), state):
             cache[name].copy_(new)
@@ -628,26 +829,37 @@ def _apply_slstm(cfg: ArchConfig, p: dict, x: torch.Tensor, mode: str,
     hh = cfg.rnn_heads
     dh = d // hh
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    wx = (h.float() @ p["w4"]).reshape(b, t, hh, 4 * dh)
+    wx = _split_heads(_pin(h.float() @ p["w4"]), hh, 4 * dh)
 
-    if mode == "decode":
-        state = (cache["c"], cache["n"], cache["h"], cache["m"])
-        state, hs = _slstm_step(p, state, wx[:, 0])
-        hs = hs[:, None]
-    else:
-        zeros = torch.zeros((b, hh, dh), dtype=torch.float32,
-                            device=x.device)
+    def core(wx, r4, b4, *state):
+        pr = {"r4": r4, "b4": b4}
+        if mode == "decode":
+            state, hs = _slstm_step(pr, state, wx[:, 0])
+            return (*state, hs.reshape(hs.shape[0], 1, -1))
+        bl, hl = wx.shape[0], wx.shape[2]
+        zeros = torch.zeros((bl, hl, dh), dtype=torch.float32,
+                            device=wx.device)
         init = (zeros, zeros, zeros,
-                torch.full((b, hh, dh), ref.NEG_INF, dtype=torch.float32,
-                           device=x.device))
+                torch.full((bl, hl, dh), ref.NEG_INF, dtype=torch.float32,
+                           device=wx.device))
         state, hs = _chunked_scan(
-            lambda s, w: _slstm_step(p, s, w[0]), init,
+            lambda s, w: _slstm_step(pr, s, w[0]), init,
             (wx.transpose(0, 1),), chunk=256, remat=(mode == "train"))
-        hs = hs.transpose(0, 1)
-    y = hs.reshape(b, t, d).to(x.dtype)
-    x = x + y
+        return (*state, hs.transpose(0, 1).reshape(bl, wx.shape[1], -1))
+
+    args = (wx, p["r4"], p["b4"])
+    if mode == "decode":
+        args += (cache["c"], cache["n"], cache["h"], cache["m"])
+    if is_dtensor(wx):
+        *state, hs = _lmap(wx, core, args,
+                           [(0, 2), (None, 0), (None, 0)] + [(0, 1)] * 4,
+                           [(0, 1)] * 4 + [(0, 2)], hh)
+    else:
+        *state, hs = core(*args)
+    y = hs.to(x.dtype)
+    x = x + _branch(y)
     hh2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + _dense_ffn(cfg, p, hh2)
+    x = x + _branch(_dense_ffn(cfg, p, hh2))
     if mode in ("decode", "prefill"):
         for name, new in zip(("c", "n", "h", "m"), state):
             cache[name].copy_(new)

@@ -31,6 +31,8 @@ import torch
 
 from repro_torch.tree import leaves
 
+from repro_torch.sharding.api import logical_constraint, unshard_zero
+
 from .common import (chunked_ce_loss, embed_tokens, rms_norm, torch_dtype,
                      unembed_logits)
 from .config import ArchConfig
@@ -81,8 +83,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, *,
 
 def _embed_inputs(cfg: ArchConfig, p: dict, inputs) -> torch.Tensor:
     if cfg.has_embedding:
-        return embed_tokens(p["embed"], inputs, cfg.d_model)
-    return inputs.to(torch_dtype(cfg.dtype)) @ p["adapter_in"]
+        return embed_tokens(unshard_zero(p["embed"]), inputs, cfg.d_model)
+    x = inputs.to(torch_dtype(cfg.dtype)) @ unshard_zero(p["adapter_in"])
+    return logical_constraint(x, "batch", "seq", None)
 
 
 def _run_layers(cfg: ArchConfig, p: dict, x: torch.Tensor,
@@ -93,7 +96,11 @@ def _run_layers(cfg: ArchConfig, p: dict, x: torch.Tensor,
 
     def run(kind, lp, h, cache):
         def fn(h_in):
-            return apply_layer(cfg, kind, lp, h_in, mode, cache, pos)[0]
+            # a ZeRO-split layer is gathered here, inside the remat
+            # boundary, so one layer's full weights are live at a time
+            lp_full = {k: unshard_zero(w) for k, w in lp.items()}
+            return apply_layer(cfg, kind, lp_full, h_in, mode, cache,
+                               pos)[0]
         if remat:
             return checkpointed(fn, h)
         return fn(h)
@@ -117,8 +124,8 @@ def _run_layers(cfg: ArchConfig, p: dict, x: torch.Tensor,
 
 def _head_matrix(cfg: ArchConfig, p: dict) -> torch.Tensor:
     if cfg.has_embedding and cfg.tie_embeddings:
-        return p["embed"].T
-    return p["head"]
+        return unshard_zero(p["embed"]).T
+    return unshard_zero(p["head"])
 
 
 def forward(cfg: ArchConfig, p: dict, inputs) -> torch.Tensor:
@@ -140,8 +147,7 @@ def train_loss(cfg: ArchConfig, p: dict, inputs, labels, mask=None,
     x, _ = _run_layers(cfg, p, x)
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
+        mask = torch.ones_like(labels, dtype=torch.float32)
     return chunked_ce_loss(x, _head_matrix(cfg, p), labels, mask,
                            softcap=cfg.final_softcap, chunk=ce_chunk)
 
@@ -163,17 +169,21 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
     return {"cycles": cycles, "tail": tail}
 
 
-def prefill(cfg: ArchConfig, p: dict, inputs, max_len: int):
+def prefill(cfg: ArchConfig, p: dict, inputs, max_len: int,
+            caches: dict | None = None):
     """Run the prompt, return (logits_last (B, V) f32, caches).
 
     Global and moe KV caches hold max(max_len, T) entries, the first T
     of them filled; local caches the last ``window`` keys; recurrent
-    caches the (h, conv) state.
+    caches the (h, conv) state.  ``caches`` (laid out as
+    ``init_decode_cache`` lays them out, e.g. placed DTensors) are
+    filled instead of new ones.
     """
     assert cfg.causal, "prefill/decode only for causal LMs"
     b, t = inputs.shape[:2]
-    caches = init_decode_cache(cfg, b, max(max_len, t),
-                               device=inputs.device)
+    if caches is None:
+        caches = init_decode_cache(cfg, b, max(max_len, t),
+                                   device=inputs.device)
     x = _embed_inputs(cfg, p, inputs)
     x, caches = _run_layers(cfg, p, x, "prefill", caches)
     x = rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)

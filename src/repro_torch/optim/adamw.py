@@ -9,6 +9,10 @@ Unlike the JAX function, ``adamw_update`` works in place: it updates
 ``state.master``, ``state.m``, ``state.v`` and ``params`` and returns
 them, so a full-width step holds no second copy of the 20 GB of
 optimizer state.  Callers that need the old state clone it first.
+
+DTensor parameters give ``master``, ``m`` and ``v`` their placements
+(``launch.specs.opt_state_specs``); ``step`` is a plain 0-dim tensor,
+which DTensor treats as replicated.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ def adamw_init(params) -> OptState:
     dev = leaves(params)[0].device
 
     def zeros(x):
-        return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        return torch.zeros_like(x, dtype=torch.float32)
 
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
