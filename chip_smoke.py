@@ -65,7 +65,11 @@ and imports nothing of the JAX package:
       before and after, splits the prefill's seconds (the served
       prefill itself runs unsynchronised);
 5. holds the served prefill against the same prefill through the plain
-   versions at full width: last-position logits within a relative L2
+   versions at full width (timed, with the calls of each plain attention
+   route logged: the two-block route, ``ref.attention_swa``, takes the
+   local layers of gemma3-4b and recurrentgemma-2b, whose 8192 tokens
+   exceed two windows; gemma2-2b's, at exactly two, stay q-chunked):
+   last-position logits within a relative L2
    of 2e-2, the first greedy token equal in at least 7 of 8 rows; and
    prints, beside it, how far a one-ulp bump of the first layer's
    normed input moves the plain path's logits (the bf16 noise floor);
@@ -225,7 +229,22 @@ and imports nothing of the JAX package:
       and wall_s, the staleness histogram and drops equal the JAX
       package's (242.6 s; 197.7 s, {1: 94}; 213.5 s, {1: 52}; 0
       dropped); host and fair-share seconds;
-12. the pod axis (``repro_torch.dist.torrent``'s ring, the
+12. the examples (``run_examples``): each ``examples/*_torch.py`` at its
+   own sizes with ``--device cuda``, in this process (``runpy``, with
+   ``sys.argv`` set), the launch counters set to 0 before each:
+   quickstart's and custom_policy's stdout equal to a ``--device cpu``
+   run of the same file; llm_dissemination's swarm lines equal to the
+   CPU run's, ``chunk_quantize`` and ``chunk_dequantize`` launched once
+   each on its (16, 65536) rows, the ratio 4.00x and the error within
+   the quantizer's half step, 1/254; serve_lm (reduced gemma2-2b and
+   recurrentgemma-2b) with ``flash_attention`` launched for both and
+   ``rglru_scan`` for recurrentgemma-2b, tokens in range; train_lm_fl
+   (reduced qwen3-1.7b, one pod, 120 steps) under its loss bound, then
+   resumed to 140; fl_learning_e2e's FLTorrent within 1e-3 of CFL every
+   round with agreement, and its churn run's participation and rejoin
+   rounds equal to the same run on the CPU; each example's seconds and
+   launches, the phase within ``EXAMPLES_LIMIT_S``;
+13. the pod axis (``repro_torch.dist.torrent``'s ring, the
    expert-parallel MoE; NCCL cannot run two ranks on one card):
    a. ``ring_local``: the ring's rank body with P virtual ranks on the
       card (``LocalTransport``, a send a device copy) over seeded f32
@@ -254,7 +273,7 @@ and imports nothing of the JAX package:
       path: losses, params and the f32 master, m and v equal bit for
       bit); with one GPU
       it prints ``{"phase": "ring_nccl", "ran": false, "gpus": 1}``;
-13. the dry run (``repro_torch.launch.dryrun``, ``run_dryrun_paths``;
+14. the dry run (``repro_torch.launch.dryrun``, ``run_dryrun_paths``;
    no kernel build; the plain path, as the dry run traces it):
    a. fidelity: one pod's qwen3-1.7b training step at full width on a
       one-device mesh (``DRYRUN_BATCH`` x ``DRYRUN_SEQ`` tokens),
@@ -268,9 +287,10 @@ and imports nothing of the JAX package:
    b. one production cell: qwen3-1.7b ``train_4k`` traced on the
       2 x 16 x 16 mesh (rank 0 of 512 on the ``fake`` backend: the pod
       ring, the placements); its record printed;
-14. prints one ``{"slot_engine": {...}}`` line with the slot engine's
+15. prints one ``{"slot_engine": {...}}`` line with the slot engine's
    times, one ``{"event_paths": {...}}`` line with those times, one
-   ``{"fl_paths": {...}}`` line with the FL phase's rows and times,
+   ``{"fl_paths": {...}}`` line with the FL phase's rows and times, one
+   ``{"examples": {...}}`` line with each example's seconds and launches,
    ``{"ring_local": ...}``, ``{"moe_ep_local": ...}``,
    ``{"ring_nccl": ...}`` and ``{"dryrun": ...}`` lines, one
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -1396,6 +1416,94 @@ def timed_calls(totals: dict, funcs):
             setattr(layers, f, fn)
 
 
+@contextlib.contextmanager
+def counted_routes():
+    """{route: calls} of the plain attention's two routes
+    (``ref.attention_swa``, ``ref.attention_qchunk``) while open."""
+    from repro_torch.kernels import ref
+    counts = {"attention_swa": 0, "attention_qchunk": 0}
+    real = {name: getattr(ref, name) for name in counts}
+
+    def counter(name):
+        def call(*a, **k):
+            counts[name] += 1
+            return real[name](*a, **k)
+        return call
+    for name in counts:
+        setattr(ref, name, counter(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in real.items():
+            setattr(ref, name, fn)
+
+
+def plain_prefill(cfg, params, prompts):
+    """The prefill through the plain impls: (last logits on the CPU,
+    seconds, {route: calls})."""
+    import torch
+
+    from repro_torch.models import prefill
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counted_routes() as routes:
+        logits, caches = prefill(cfg, params, prompts,
+                                 max_len=SERVE_PROMPT + SERVE_GEN)
+        logits = logits.float().cpu()
+    secs = time.perf_counter() - t0
+    del caches
+    return logits, secs, routes
+
+
+def plain_prefill_routes(archs=("gemma3-4b", "recurrentgemma-2b")) -> dict:
+    """Each arch's full-width plain prefill (``SERVE_BATCH`` x
+    ``SERVE_PROMPT``), timed with its local layers on the two-block
+    route and then with every layer on the q-chunked route, as before
+    the two-block route was ported: seconds, peak memory and the
+    relative L2 between the two routes' last logits."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    out = {}
+    for arch in archs:
+        cfg = serve.serving_config(arch, reduced=False).replace(
+            attn_impl="xla", rnn_impl="xla")
+        row = {}
+        with torch.no_grad():
+            params = serve.make_params(cfg, "cuda")
+            prompts = serve.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                         "cuda")
+            for label in ("two-block", "q-chunked", "two-block again"):
+                real = ops.swa_route
+                if label == "q-chunked":
+                    ops.swa_route = lambda *a, **k: False
+                free_cuda()
+                torch.cuda.reset_peak_memory_stats()
+                try:
+                    logits, secs, routes = plain_prefill(cfg, params,
+                                                         prompts)
+                finally:
+                    ops.swa_route = real
+                row[label] = {"seconds": secs, "routes": routes,
+                              "peak_gb": torch.cuda.max_memory_allocated()
+                              / 1e9, "logits": logits}
+        del params, prompts
+        free_cuda()
+        a, b = row["two-block"]["logits"], row["q-chunked"]["logits"]
+        rel = float((a - b).norm() / b.norm())
+        for r in row.values():
+            del r["logits"]
+        out[arch] = dict(row, rel_l2=rel)
+        log(f"{arch} plain prefill by route: " + "; ".join(
+            f"{k} {v['seconds']:.3f} s, peak {v['peak_gb']:.2f} GB, "
+            f"{v['routes']}" for k, v in row.items())
+            + f"; last logits' relative L2 between the routes {rel:.3e}")
+    return out
+
+
 def check_serving_vs_plain(served: dict) -> None:
     """The served prefill's last logits against the same prefill with
     the plain impls, same parameters and prompt, at full width."""
@@ -1412,10 +1520,9 @@ def check_serving_vs_plain(served: dict) -> None:
             params = serve.make_params(cfg, "cuda")
             prompts = serve.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT,
                                          "cuda")
-            want, caches = prefill(cfg, params, prompts,
-                                   max_len=SERVE_PROMPT + SERVE_GEN)
-            want = want.float().cpu()
-            del caches
+            want, plain_s, routes = plain_prefill(cfg, params, prompts)
+            log(f"{arch} full-width plain prefill: {plain_s:.3f} s, "
+                f"attention routes {routes}")
             if arch in SERVE_REL_L2_DEEP:
                 # the served path with a fault
                 fault = WITNESS_CONTROLS[arch][0]
@@ -3795,6 +3902,168 @@ def run_fl_paths(device=None) -> dict:
 
 
 # ----------------------------------------------------------------------
+# the examples: examples/*_torch.py as a user runs them
+# ----------------------------------------------------------------------
+
+EXAMPLES_DIR = ROOT / "examples"
+EXAMPLES_LIMIT_S = 120          # the phase's share of the script's time
+QUANT_HALF_STEP = 1 / 254       # chunk_quantize's error bound, relative
+QUANT_F32_SLACK = 1e-5          # f32 rounding over that bound, relative
+
+
+def run_example(name: str, device: str):
+    """``examples/<name>_torch.py`` in this process with ``sys.argv``
+    set to ``--device device``, the launch counters set to 0 just
+    before its ``main`` and read just after: (what ``main`` returns,
+    its stdout, the counts, its seconds)."""
+    import io
+    import runpy
+
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    path = EXAMPLES_DIR / f"{name}_torch.py"
+    main = runpy.run_path(str(path), run_name=f"{name}_torch")["main"]
+    buf = io.StringIO()
+    argv = sys.argv
+    sys.argv = [str(path), "--device", device]
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ret = main()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in LAUNCHES.items() if v}
+    finally:
+        sys.argv = argv
+    return ret, buf.getvalue(), counts, secs
+
+
+def run_examples(device: str = "cuda") -> dict:
+    """The six ``examples/*_torch.py`` at their own sizes on ``device``
+    (``"cpu"`` rehearses), each against what it must show: quickstart's
+    and custom_policy's stdout equal to a ``--device cpu`` run of the
+    same file; llm_dissemination's swarm lines equal to the CPU run's,
+    ``chunk_quantize`` and ``chunk_dequantize`` launched once each, the
+    ratio 4.00x, the error within the quantizer's half step; serve_lm's
+    tokens in range, ``flash_attention`` launched for both archs and
+    ``rglru_scan`` for recurrentgemma-2b; train_lm_fl's loss under its
+    bound and the resume run; fl_learning_e2e's FLTorrent within
+    ``FL_AGREE_TOL`` of CFL every round with agreement, the churn run's
+    participation and rejoin rounds equal to the CPU run's.  Returns
+    each example's seconds and launches."""
+    import runpy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import serve
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    def ran(name, ret, text, counts, secs):
+        out[name] = {"seconds": secs, "launches": counts}
+        log(f"example {name}_torch --device {device}: {secs:.2f} s, "
+            f"launches {counts}")
+        for line in text.rstrip("\n").splitlines():
+            log(f"  | {line}")
+        return ret, text, counts
+
+    for name in ("quickstart", "custom_policy"):
+        _, text, _ = ran(name, *run_example(name, device))
+        _, want, _, _ = run_example(name, "cpu")
+        check(text == want, f"{name}_torch: the stdout on {device} differs "
+              f"from the CPU run's:\n{text}\n---\n{want}")
+
+    (ratio, rel), text, counts = ran(
+        "llm_dissemination", *run_example("llm_dissemination", device))
+    _, want, _, _ = run_example("llm_dissemination", "cpu")
+    check(text.split("\n\n")[0] == want.split("\n\n")[0],
+          f"llm_dissemination_torch: the swarm lines on {device} differ "
+          f"from the CPU run's")
+    check("4.00x fewer wire bytes" in text, f"ratio {ratio}")
+    check(0 < rel <= QUANT_HALF_STEP * (1 + QUANT_F32_SLACK),
+          f"llm_dissemination_torch: max rel err {rel} > 1/254")
+    if on_card:
+        check(counts.get("chunk_quantize") == 1
+              and counts.get("chunk_dequantize") == 1,
+              f"llm_dissemination_torch: launches {counts}")
+    out["llm_dissemination"].update(ratio=ratio, max_rel_err=rel)
+
+    real_serve = serve.main
+    per_arch = []
+
+    def counted_serve(argv=None, stats=None):
+        before = dict(LAUNCHES)
+        toks = real_serve(argv, stats=stats)
+        per_arch.append((argv[argv.index("--arch") + 1], toks, {
+            k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+            if v - before.get(k, 0)}))
+        return toks
+    serve.main = counted_serve
+    try:
+        ran("serve_lm", *run_example("serve_lm", device))
+    finally:
+        serve.main = real_serve
+    check([a for a, _, _ in per_arch] == ["gemma2-2b", "recurrentgemma-2b"],
+          f"serve_lm_torch served {[a for a, _, _ in per_arch]}")
+    for arch, toks, counts in per_arch:
+        vocab = get_config(arch, reduced=True).vocab
+        check(bool(((toks >= 0) & (toks < vocab)).all()),
+              f"serve_lm_torch {arch}: tokens outside [0, {vocab})")
+        if on_card:
+            check(counts.get("flash_attention", 0) > 0,
+                  f"serve_lm_torch {arch}: flash_attention never launched")
+            if arch == "recurrentgemma-2b":
+                check(counts.get("rglru_scan", 0) > 0,
+                      f"serve_lm_torch {arch}: rglru_scan never launched")
+        log(f"serve_lm_torch {arch}: launches {counts}")
+    out["serve_lm"]["by_arch"] = {a: c for a, _, c in per_arch}
+
+    (loss, resumed), text, _ = ran("train_lm_fl",
+                                   *run_example("train_lm_fl", device))
+    check("resumed from round" in text and math.isfinite(resumed),
+          f"train_lm_fl_torch: no resume (final loss {resumed})")
+    out["train_lm_fl"].update(loss=loss, resumed_loss=resumed)
+
+    (results, ch), _, _ = ran("fl_learning_e2e",
+                              *run_example("fl_learning_e2e", device))
+    flt, cfl = results["fltorrent"], results["cfl"]
+    gaps = _acc_gaps(flt.accuracy, cfl.accuracy)
+    check(max(gaps) <= FL_AGREE_TOL and flt.agreement,
+          f"fl_learning_e2e_torch: FLTorrent - CFL {gaps}, agreement "
+          f"{flt.agreement}")
+    # the churn run alone with --device cpu, from the example's config
+    fl = runpy.run_path(str(EXAMPLES_DIR / "fl_learning_e2e_torch.py"),
+                        run_name="fl_learning_e2e_torch")
+    want = fl["run_experiment"]("fltorrent", fl["_config"](
+        churn_rate=fl["CHURN_RATE"], rejoin_after=1), device="cpu")
+    check((ch.participation, ch.rejoin_rounds)
+          == (want.participation, want.rejoin_rounds) and ch.agreement,
+          f"fl_learning_e2e_torch churn: {ch.participation}, "
+          f"{ch.rejoin_rounds} on {device}; {want.participation}, "
+          f"{want.rejoin_rounds} on the CPU")
+    out["fl_learning_e2e"].update(max_gap=max(gaps),
+                                  participation=ch.participation,
+                                  rejoin_rounds=ch.rejoin_rounds)
+    if on_card:
+        torch.cuda.synchronize()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"examples phase: {out['phase_s']:.1f} s")
+    if on_card:
+        check(out["phase_s"] <= EXAMPLES_LIMIT_S,
+              f"examples phase took {out['phase_s']:.1f} s > "
+              f"{EXAMPLES_LIMIT_S} s")
+    return out
+
+
+# ----------------------------------------------------------------------
 # the multi-rank layer: the torrent ring, the expert-parallel MoE
 # ----------------------------------------------------------------------
 
@@ -4395,6 +4664,7 @@ def main() -> int:
         rows += slot_rows
         event = run_event_paths()
         fl = run_fl_paths()
+        examples = run_examples()
         ring = run_ring_local()
         moe_ep = check_moe_ep_local()
         moe_ep["remat_binding"] = check_remat_binding()
@@ -4409,6 +4679,7 @@ def main() -> int:
     log(json.dumps({"slot_engine": slot, "card": card}))
     log(json.dumps({"event_paths": event, "card": card}))
     log(json.dumps({"fl_paths": fl, "card": card}))
+    log(json.dumps({"examples": examples, "card": card}))
     log(json.dumps({"ring_local": ring, "card": card}))
     log(json.dumps({"moe_ep_local": moe_ep, "card": card}))
     log(json.dumps({"ring_nccl": nccl, "card": card}))

@@ -7,15 +7,18 @@ The ``impl=`` names follow ``repro/kernels/ops.py``:
                       plain version for tensors on the CPU and launches
                       the kernel for CUDA tensors.
 * ``impl="torch"``  — plain PyTorch, blocked where the JAX ``"xla"``
-                      path is blocked (attention is chunked over q;
-                      rglru is a log-depth scan; mlstm is chunkwise),
-                      and differentiable.
+                      path is blocked (attention is chunked over q,
+                      each block recomputed in backward, or two-block
+                      sliding-window; rglru is a log-depth scan; mlstm
+                      is chunkwise), and differentiable.
 * ``impl="ref"``    — the oracles in ``ref.py`` (O(T^2) attention,
                       the sequential rglru loop, the chunkwise mlstm).
 
-JAX's two-block sliding-window path (``_xla_attention_swa``) is not
-ported: ``impl="torch"`` computes the same function with the q-chunked
-path.
+``impl="torch"`` attention takes JAX's two-block sliding-window route
+(``ref.attention_swa``, O(T * window) work and memory) under JAX's own
+condition (``swa_route``) and the q-chunked route
+(``ref.attention_qchunk``) otherwise.  The kernel's backward recomputes
+through the q-chunked route, as ``_pallas_attention_bwd`` does.
 """
 from __future__ import annotations
 
@@ -54,6 +57,17 @@ class _FlashAttention(torch.autograd.Function):
         return (*grads, None)
 
 
+def swa_route(tq: int, tk: int, *, causal: bool, window, q_offset,
+              kv_offset) -> bool:
+    """JAX's condition (``repro/kernels/ops.py::attention``) for the
+    two-block route: a causal window over a full sequence, both offsets
+    the literal 0 (a tensor offset never takes it), and Tq > 2 window."""
+    static_offsets = (isinstance(q_offset, int) and q_offset == 0
+                      and isinstance(kv_offset, int) and kv_offset == 0)
+    return (window is not None and causal and static_offsets
+            and tq == tk and tq > 2 * window)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None,
               softcap: float | None = None, q_offset: int = 0,
@@ -71,6 +85,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl == "cuda":
         return _FlashAttention.apply(q, k, v, kw)
     if impl == "torch":
+        if swa_route(q.shape[2], k.shape[2], causal=causal, window=window,
+                     q_offset=q_offset, kv_offset=kv_offset):
+            return ref.attention_swa(q, k, v, softcap=softcap, scale=scale,
+                                     window=window)
         return ref.attention_qchunk(q, k, v, **kw)
     if impl == "ref":
         kw.pop("block_q")

@@ -2,7 +2,8 @@
 
 Each function here computes what its counterpart in
 ``repro/kernels/ref.py`` computes, in straightforward tensor code, and
-``attention_qchunk`` ports ``repro/kernels/ops.py::_xla_attention_qchunk``;
+``attention_qchunk`` and ``attention_swa`` port
+``repro/kernels/ops.py::_xla_attention_qchunk`` and ``_xla_attention_swa``;
 ``mlstm_chunkwise_torch`` and ``mlstm_step`` port the mLSTM functions of
 ``repro/models/layers.py``, which the layers call from here.  The CUDA
 wrappers (``fedavg.py``, ``quantize.py``, ``attention.py``,
@@ -72,7 +73,15 @@ def attention_qchunk(q, k, v, *, causal=True, window=None, softcap=None,
     """Port of ``_xla_attention_qchunk``: peak memory O(block_q * Tk)
     per head, plain einsum and softmax in f32, GQA without repeating
     K/V (query head h reads KV head h // group).  The plain version of
-    the ``flash_attention`` kernel, and ``ops.attention(impl="torch")``.
+    the ``flash_attention`` kernel, and ``ops.attention(impl="torch")``
+    where the two-block route (``attention_swa``) does not apply.
+
+    When grad is enabled and an input requires it, each q block runs
+    under non-reentrant ``torch.utils.checkpoint``, as JAX wraps its
+    block in ``jax.checkpoint(..., nothing_saveable)``: backward keeps
+    the block inputs and recomputes one block's f32 scores at a time.
+    The block reads no thread-local state, so autograd's device thread
+    recomputes it as the forward ran it.
     """
     b, hq, tq, d = q.shape
     _, hkv, tk, _ = k.shape
@@ -86,10 +95,9 @@ def attention_qchunk(q, k, v, *, causal=True, window=None, softcap=None,
     kf = k.float()
     vf = v.float()
     k_pos = kv_offset + torch.arange(tk, device=q.device)[None, :]
-    outs = []
-    for qi in range(nq):
-        qf = q[:, :, qi * block_q:(qi + 1) * block_q].float()
-        qg = qf.reshape(b, hkv, group, block_q, d)
+
+    def one_block(qi, qblk, kf, vf):
+        qg = qblk.float().reshape(b, hkv, group, block_q, d)
         s = torch.einsum("bkgqd,bktd->bkgqt", qg, kf) * sc
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
@@ -104,9 +112,68 @@ def attention_qchunk(q, k, v, *, causal=True, window=None, softcap=None,
         p = torch.softmax(s, dim=-1)
         p = torch.where(mask.any(-1)[:, None], p, 0.0)
         o = torch.einsum("bkgqt,bktd->bkgqd", p, vf)
-        outs.append(o.reshape(b, hq, block_q, d))
+        return o.reshape(b, hq, block_q, d)
+
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for qi in range(nq):
+        qblk = q[:, :, qi * block_q:(qi + 1) * block_q]
+        outs.append(checkpoint(one_block, qi, qblk, kf, vf,
+                               use_reentrant=False) if remat
+                    else one_block(qi, qblk, kf, vf))
     out = outs[0] if nq == 1 else torch.cat(outs, dim=2)
     return out[:, :, :tq].to(q.dtype)
+
+
+def attention_swa(q, k, v, *, softcap=None, scale=None, window):
+    """Port of ``_xla_attention_swa``: causal sliding-window attention
+    over a full sequence (Tq == Tk, both offsets 0) in blocks of
+    ``window`` rows, each q block against the two-block strip of k/v
+    blocks (i - 1, i), zeros before block 0.  Work and peak memory are
+    O(T * window), not O(T^2).  f32 math, GQA without repeating K/V,
+    softcap, rows with no live key 0.  ``ops.attention(impl="torch")``
+    takes it under JAX's condition (``ops.swa_route``).
+    """
+    b, hq, tq, d = q.shape
+    _, hkv, tk, _ = k.shape
+    if tq != tk:
+        raise ValueError(f"attention_swa needs Tq == Tk, got {tq}, {tk}")
+    group = hq // hkv
+    sc = (d ** -0.5) if scale is None else scale
+    bs = window
+    pad = (-tq) % bs
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                   for t in (q, k, v))
+    t = q.shape[2]
+    nb = t // bs
+    qg = q.reshape(b, hkv, group, nb, bs, d).float()
+    kb = k.reshape(b, hkv, nb, bs, d).float()
+    vb = v.reshape(b, hkv, nb, bs, d).float()
+    # The previous k/v block (zeros for block 0).
+    kprev = torch.nn.functional.pad(kb[:, :, :-1], (0, 0, 0, 0, 1, 0))
+    vprev = torch.nn.functional.pad(vb[:, :, :-1], (0, 0, 0, 0, 1, 0))
+    k2 = torch.cat([kprev, kb], dim=3)              # (b, hkv, nb, 2bs, d)
+    v2 = torch.cat([vprev, vb], dim=3)
+    s = torch.einsum("bkgnqd,bkntd->bkgnqt", qg, k2) * sc
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    # Positions within the strip: q at bs + i, k at j.
+    ar = torch.arange(2 * bs, device=q.device)
+    q_pos = bs + ar[:bs, None]
+    k_pos = ar[None, :]
+    mask = (k_pos <= q_pos) & (k_pos > q_pos - window)
+    # Block 0 has no previous block (its strip's left half is padding).
+    blk = torch.arange(nb, device=q.device)[:, None, None]
+    mask = mask[None] & ((k_pos[None] >= bs) | (blk > 0))
+    if pad:                                         # padded tail keys
+        mask = mask & (blk * bs + (k_pos[None] - bs) < tk)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1)[..., None], p, 0.0)
+    o = torch.einsum("bkgnqt,bkntd->bkgnqd", p, v2)
+    return o.reshape(b, hq, t, d)[:, :, :tq].to(q.dtype)
 
 
 def attention_split_decode(q, k, v, ranges, *, causal=True, window=None,

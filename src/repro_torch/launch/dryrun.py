@@ -20,7 +20,9 @@ dry run
 
 The traced path is the configurations' default (``attn_impl`` and
 ``rnn_impl`` "xla", the port's plain PyTorch path), which is what the
-JAX dry run traces.  Each cell is written to
+JAX dry run traces: attention takes the two-block sliding-window route
+where JAX's does and recomputes its q blocks in backward as JAX's
+``jax.checkpoint`` does (``kernels.ops.attention``).  Each cell is written to
 ``<out>/<arch>__<shape>__<mesh>.json``; a cell that fails is recorded
 with ``status: fail`` and its error, and the run exits 1.
 

@@ -1,11 +1,13 @@
 """The port stands alone: no jax, no ``repro`` module, no quiet CPU.
 
-``src/repro_torch`` and ``chip_smoke.py`` must run on a GPU machine
-where the JAX package cannot be imported, and the port's entry points
-must refuse to fall back to the CPU when no GPU is present.
+``src/repro_torch``, ``chip_smoke.py`` and ``examples/*_torch.py`` must
+run on a GPU machine where the JAX package cannot be imported, and the
+port's entry points, the six examples among them, must refuse to fall
+back to the CPU when no GPU is present.
 """
 import ast
 import os
+import runpy
 import subprocess
 import sys
 from pathlib import Path
@@ -19,8 +21,12 @@ PORT = REPO / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
+EXAMPLES = sorted((REPO / "examples").glob("*_torch.py"))
+
+
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + EXAMPLES)
 
 
 def _imported_modules(path: Path):
@@ -86,3 +92,8 @@ def test_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+    assert len(EXAMPLES) == 6
+    for path in EXAMPLES:
+        main = runpy.run_path(str(path))["main"]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([])
