@@ -11,8 +11,9 @@ and imports nothing of the JAX package:
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``build/torch_kernels/`` and prints how long that took; beside that
    build it compiles ``csrc/attention.cu``, ``csrc/mlstm.cu``,
-   ``csrc/rglru.cu`` and ``csrc/slots.cu`` each alone with ``-Xptxas
-   -v`` and prints their registers, shared memory and spills, then the
+   ``csrc/rglru.cu``, ``csrc/slots.cu`` and ``csrc/fairshare.cu`` each
+   alone with ``-Xptxas -v`` and prints their registers, shared memory
+   and spills, then the
    number of ``HGMMA`` instructions in each
    kernel's SASS (``cuobjdump``), which must be nonzero for attention's
    wgmma prefill kernel and mlstm's tensor-core kernels;
@@ -171,15 +172,18 @@ and imports nothing of the JAX package:
    d. the jit session twin (n 20, K 16, churn 0.1, two rounds) on the
       slot and event engines: the card's traces equal the CPU's byte
       for byte;
-10. the event engine (``repro_torch.net``, ``run_event_paths``; no
-   kernel build), whose max-min fair-share solves run in torch float64
-   on the card:
+10. the event engine (``repro_torch.net``, ``run_event_paths``), whose
+   max-min fair-share solves run in float64 on the card, one launch of
+   the ``fairshare_maxmin`` or ``fairshare_transport`` kernel a call:
    a. the card's ``maxmin_rates`` and ``transport`` against their numpy
       plain versions on tests/test_net.py's small cases, seeded
       heterogeneous cases (zero-capacity links, a tail truncated at 2
-      passes, ``quantum_frac`` 0) and the first 20 transport calls of
-      the n 100 round below: chunk_flow and n_solves exact, rates and
-      instants within 1e-9, the largest gap logged;
+      passes, ``quantum_frac`` 0), a call at Llama-3.3-70B's width (n
+      50, every ordered pair a flow, about 333,000 chunk ends), an n
+      500 call of 5,000 flows and the first 20 transport calls of the n
+      100 round below: chunk_flow and n_solves exact, rates and instants
+      within 1e-9, the cases equal bit for bit and the largest gap
+      logged;
    b. slot/event parity (n 60, K 64, no tracker RTT): the event
       engine's chunk and slot columns equal the slot engine's;
    c. the warm-up share at the paper's scale (``EVENT_WARM_NS``; K 206,
@@ -191,17 +195,25 @@ and imports nothing of the JAX package:
       ``DATACENTER_NET``): BitTorrent only and FLTorrent, the overhead,
       share, control and spray seconds equal the committed ones; the
       first model's FLTorrent round's transport calls replayed through
-      the card and through the numpy plain version on the host, timed;
+      the card and through the numpy plain version on the host, timed,
+      the first 8 under ``torch.profiler``: one kernel launch and two
+      copies a call;
    e. the time-domain efficiency at n 100 (``warmup_time_bounds``);
    f. benchmarks/bench_obs.py's recorded two-round n 100 session: its
       JSONL and Perfetto trace written, validated and counted (238
       rows, 21,971 flows, 22,113 events), the report within 1e-6 of
       each round's metrics; benchmarks/bench_session.py's churn row;
    each round's host seconds, the seconds inside the fair-share solves
-   (a synchronised timer) and the solves and microseconds a solve;
-11. the FL stack (``repro_torch.fl``, ``run_fl_paths``; no kernel
-   build: the FL path's FedAvg and gossip are einsums, as in the JAX
-   package), on the card by default, TF32 left at torch's default (the
+   (a synchronised timer) and the solves and microseconds a solve; the
+   launch counters set to 0 before each round and read after it: every
+   ``transport`` and ``maxmin_rates`` call of the rounds one launch of
+   its kernel; then both kernels at Gemma-7B's widest call, timed
+   beside their bound, the torch loop and numpy (two ``kernels``
+   rows);
+11. the FL stack (``repro_torch.fl``, ``run_fl_paths``; the FL path's
+   FedAvg and gossip are einsums, as in the JAX package, and the async
+   runs' event rounds solve through the fair-share kernels), on the
+   card by default, TF32 left at torch's default (the
    runners turn it off themselves; each aggregate is checked to be made
    on the card with TF32 off):
    a. Table II's fast rows (benchmarks/table2_learning.py, fast:
@@ -302,6 +314,7 @@ non-zero at once.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -316,6 +329,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at 700 W
 F32_OPS_PER_S = 67e12           # f32 outside the tensor cores, same sheet
 BF16_OPS_PER_S = 989e12         # bf16 tensor cores, dense, same sheet
+F64_OPS_PER_S = 34e12           # f64 outside the tensor cores, same sheet
 FULL_D = 1_720_574_976          # qwen3-1.7b parameter count
 GRANITE_D = 1_334_628_352       # granite-moe-1b-a400m parameter count
 PODS = 2
@@ -477,7 +491,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-PTXAS_SOURCES = ("attention.cu", "mlstm.cu", "rglru.cu", "slots.cu")
+PTXAS_SOURCES = ("attention.cu", "mlstm.cu", "rglru.cu", "slots.cu",
+                 "fairshare.cu")
 # build()'s ptxas report: (source, mangled kernel) -> registers, spills,
 # static shared memory
 PTXAS: dict = {}
@@ -3022,9 +3037,9 @@ def run_slot_engine_paths(device=None) -> tuple[dict, list[dict]]:
 # is its --quick n 60 point, 0.9802).  Each is held at its committed
 # rounding: seconds to 0.1, shares to 4 places, overheads to 2.
 EVENT_TOL = 1e-9                # fair-share on the card vs plain, rtol/atol
-# warm-up share rounds run (n 200, about 115 s of host time, and n 500
-# are cut for the script's time; their references stay)
-EVENT_WARM_NS = (100,)
+# warm-up share rounds run (n 500 is cut for the script's time; its
+# reference stays)
+EVENT_WARM_NS = (100, 200)
 WARM_SHARE_REF = {100: (242.4, 2540.4, 0.0954),     # t_warm_s, t_round_s,
                   200: (544.4, 5337.4, 0.1020),     # warmup_share_s
                   500: (1370.3, 13165.3, 0.1041)}
@@ -3042,12 +3057,20 @@ OBS_REPORT_TOL = 1e-6           # bench_obs.py's report bound
 CHURN_REF = (0.7025, 0.8896, 0.0793, 0)   # persistence, participation,
 #                                         warm-up share, failed-open rounds
 FAIRSHARE_RECORDED = 20         # first transport calls of the n 100 round
+FAIRSHARE_WIDE = (50, 136)      # Llama-3.3-70B's Fig. 8 width: n, every
+#                                 ordered pair a flow, ~chunks a flow
+FAIRSHARE_N500 = (500, 5000)    # n, flows of the widest-n synthetic call
+# Launches and calls of the fair-share solvers inside FairshareTimer
+# blocks (the main path's rounds), summed; run_event_paths zeroes it.
+FAIRSHARE_TALLY: collections.Counter = collections.Counter()
 
 
 class FairshareTimer:
     """Wraps the event engine's ``transport`` and ``maxmin_rates`` (the
     names ``repro_torch.net.engine`` calls) with a synchronised host
-    timer; records the first ``keep`` transport calls' arguments."""
+    timer; records the first ``keep`` transport calls' arguments.  Sets
+    the launch counters to 0 on entry and adds the solvers' calls and
+    kernel launches inside the block to ``FAIRSHARE_TALLY`` on exit."""
 
     def __init__(self, keep: int = 0):
         self.keep = keep
@@ -3057,12 +3080,15 @@ class FairshareTimer:
     def __enter__(self):
         import torch
 
+        from repro_torch.kernels import reset_launches
         from repro_torch.net import engine
         self._mod = engine
         self._orig = (engine.transport, engine.maxmin_rates)
+        self.n_calls = collections.Counter()
 
         def timed(fn, record):
             def wrapper(*args, **kw):
+                self.n_calls[fn.__name__ + " calls"] += 1
                 if record and len(self.calls) < self.keep:
                     self.calls.append((args, dict(kw)))
                 t0 = time.perf_counter()
@@ -3075,10 +3101,15 @@ class FairshareTimer:
 
         engine.transport = timed(self._orig[0], True)
         engine.maxmin_rates = timed(self._orig[1], False)
+        reset_launches()
         return self
 
     def __exit__(self, *exc):
+        from repro_torch.kernels import LAUNCHES
         self._mod.transport, self._mod.maxmin_rates = self._orig
+        FAIRSHARE_TALLY.update(self.n_calls)
+        FAIRSHARE_TALLY.update({k: v for k, v in LAUNCHES.items()
+                                if k.startswith("fairshare_")})
         return False
 
 
@@ -3127,12 +3158,38 @@ def _fairshare_gap(got, want, what: str) -> float:
     return gap
 
 
+def fairshare_wide_cases() -> list:
+    """Two synthetic transport calls at the widths the card must hold
+    (argument tuples as ``check_fairshare``'s): Llama-3.3-70B's Fig. 8
+    round at n 50, every ordered pair a flow of about 136 chunks (about
+    333,000 chunk ends), over DATACENTER's 7 to 10 Gbit/s links; and n
+    500, 5,000 flows, links over six decades with zero-capacity ones."""
+    import numpy as np
+    rng = np.random.default_rng(50)
+    n, per = FAIRSHARE_WIDE
+    src, dst = np.nonzero(~np.eye(n, dtype=bool))
+    link = lambda: rng.uniform(7.0, 10.0, n) * 1e9 / 8     # noqa: E731
+    wide = (src, dst, rng.integers(per - 6, per + 7, len(src)),
+            float(FIG8_CHUNK), link(), link(), 1 / 64)
+    n, f = FAIRSHARE_N500
+    src = rng.integers(0, n, f)
+    dst = (src + 1 + rng.integers(0, n - 1, f)) % n
+    up = rng.uniform(1.0, 50.0, n) * 10.0 ** rng.integers(0, 6, n)
+    down = rng.uniform(1.0, 50.0, n) * 10.0 ** rng.integers(0, 6, n)
+    up[src[:3]] = 0.0
+    down[dst[-3:]] = 0.0
+    return [wide, (src, dst, rng.integers(1, 9, f), 1000.0, up, down,
+                   1 / 64)]
+
+
 def check_fairshare(recorded, device=None) -> None:
-    """The card's fair-share solves against the numpy plain versions:
-    tests/test_net.py's small cases, seeded heterogeneous cases (links
-    over six decades, zero-capacity links, a tail truncated at 2 passes,
-    ``quantum_frac`` 0) and ``recorded`` transport calls of a real round
-    (argument tuples)."""
+    """The card's fair-share solves (one kernel launch a call) against
+    the numpy plain versions: tests/test_net.py's small cases, seeded
+    heterogeneous cases (links over six decades, zero-capacity links, a
+    tail truncated at 2 passes, ``quantum_frac`` 0), the two wide calls
+    of :func:`fairshare_wide_cases` and ``recorded`` transport calls of
+    a real round (argument tuples); counts the cases equal bit for
+    bit."""
     import numpy as np
 
     from repro_torch.net import fairshare as fs
@@ -3156,7 +3213,10 @@ def check_fairshare(recorded, device=None) -> None:
         rate_cases.append((src, dst, up, down, 2 if seed % 2 else 16))
         flow_cases.append((src, dst, rng.integers(1, 9, f), 1000.0, up,
                            down, 0.0 if seed % 4 == 1 else 1 / 64))
-    gap = 0.0
+    wide = fairshare_wide_cases()
+    flow_cases += wide
+    rate_cases += [(c[0], c[1], c[4], c[5], 16) for c in wide]
+    gap, exact = 0.0, 0
     for i, (src, dst, up, down, passes) in enumerate(rate_cases):
         a = [np.asarray(x) for x in (src, dst, up, down)]
         got = fs.maxmin_rates(*a, passes, device=device)
@@ -3165,23 +3225,32 @@ def check_fairshare(recorded, device=None) -> None:
         check(bool((err <= EVENT_TOL + EVENT_TOL * np.abs(want)).all()),
               f"maxmin case {i}: rates beyond {EVENT_TOL}")
         gap = max(gap, float(err.max(initial=0.0)))
+        exact += bool(np.array_equal(got, want))
+    t0 = time.perf_counter()
     for i, (src, dst, cnt, cb, up, down, qf) in enumerate(flow_cases):
         a = [np.asarray(x) for x in (src, dst, cnt)]
         b = [np.asarray(x) for x in (up, down)]
-        gap = max(gap, _fairshare_gap(
+        g = _fairshare_gap(
             fs.transport(*a, cb, *b, quantum_frac=qf, device=device),
             fs.transport_plain(*a, cb, *b, quantum_frac=qf),
-            f"transport case {i}"))
+            f"transport case {i}")
+        gap, exact = max(gap, g), exact + (g == 0.0)
     for i, (args, kw) in enumerate(recorded):
-        gap = max(gap, _fairshare_gap(
+        g = _fairshare_gap(
             fs.transport(*args, **kw),
             fs.transport_plain(*args, quantum_frac=kw["quantum_frac"]),
-            f"recorded transport call {i}"))
+            f"recorded transport call {i}")
+        gap, exact = max(gap, g), exact + (g == 0.0)
+    cases = len(rate_cases) + len(flow_cases) + len(recorded)
     log(f"fair-share on the card vs the numpy plain version: "
         f"{len(rate_cases)} max-min cases, {len(flow_cases)} transport "
-        f"cases and {len(recorded)} recorded calls of the n 100 round; "
-        f"chunk_flow and n_solves exact; largest gap {gap:.3e} "
-        f"(tolerance {EVENT_TOL})")
+        f"cases (the last two {FAIRSHARE_WIDE[0]} peers x "
+        f"{len(wide[0][0])} flows x {int(wide[0][2].sum())} chunks and "
+        f"{FAIRSHARE_N500[0]} peers x {FAIRSHARE_N500[1]} flows) and "
+        f"{len(recorded)} recorded calls of the n 100 round; chunk_flow "
+        f"and n_solves exact; {exact} of {cases} bit for bit, largest gap "
+        f"{gap:.3e} (tolerance {EVENT_TOL}); transports and their plain "
+        f"versions {time.perf_counter() - t0:.2f} s")
 
 
 def check_counts_parity(device=None) -> None:
@@ -3295,8 +3364,10 @@ def replay_fig8_calls(calls, device=None) -> dict:
         f"numpy plain version on the host {plain_s:.3f} s "
         f"({plain_s / max(card_s, 1e-9):.2f}x); largest gap {gap:.3e}; "
         f"the first {PROFILED_CALLS} calls under torch.profiler: "
-        f"{prof['launches_per_solve']:.0f} kernel launches and "
-        f"{prof['syncs_per_solve']:.1f} device-to-host copies a solve, "
+        f"{prof['launches_per_call']:.1f} kernel launches and "
+        f"{prof['copies_per_call']:.1f} copies a call "
+        f"({prof['launches_per_solve']:.3f} and "
+        f"{prof['syncs_per_solve']:.3f} a solve), "
         f"{prof['device_us_per_solve']:.1f} us of device time a solve in "
         f"{prof['wall_us_per_solve']:.1f} us of wall time (device busy "
         f"{100 * prof['busy']:.1f}%)")
@@ -3309,9 +3380,11 @@ PROFILED_CALLS = 8              # replayed calls traced by torch.profiler
 
 def profile_fairshare(calls, solves: int) -> dict:
     """Trace ``calls`` transport calls on the card: kernel launches and
-    device-to-host copies (``cudaLaunchKernel``, ``cudaMemcpyAsync``
-    runtime calls) and device time a solve, and the device's busy share
-    of the traced wall time (the profiler's own cost included)."""
+    host-device copies (``cudaLaunchKernel``, ``cudaMemcpyAsync``
+    runtime calls) a call and a solve, and device time a solve, and the
+    device's busy share of the traced wall time (the profiler's own
+    cost included).  On the card a call must be one kernel launch, one
+    copy in and one copy out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3330,16 +3403,120 @@ def profile_fairshare(calls, solves: int) -> dict:
     for e in prof.key_averages():
         dev_us += (getattr(e, "self_device_time_total", None)
                    or getattr(e, "self_cuda_time_total", 0) or 0)
-        if e.key == "cudaLaunchKernel":
+        if e.key.startswith("cudaLaunchKernel"):
             launches += e.count
-        elif e.key == "cudaMemcpyAsync":
+        elif e.key.startswith("cudaMemcpy"):
             copies += e.count
+    if cuda and all(torch.device(kw["device"]).type == "cuda"
+                    for _, kw in calls):
+        check(launches == len(calls) and copies == 2 * len(calls),
+              f"fair-share: {launches} kernel launches and {copies} copies "
+              f"for {len(calls)} transport calls, not one launch and two "
+              "copies a call")
     k = max(solves, 1)
-    return {"launches_per_solve": launches / k,
+    c = max(len(calls), 1)
+    return {"launches_per_call": launches / c, "copies_per_call": copies / c,
+            "launches_per_solve": launches / k,
             "syncs_per_solve": copies / k,
             "device_us_per_solve": dev_us / k,
             "wall_us_per_solve": 1e6 * wall / k,
             "busy": dev_us / max(1e6 * wall, 1e-9)}
+
+
+def host_ms(fn, runs: int = 3) -> float:
+    """Median host milliseconds of ``fn()`` over ``runs`` calls after a
+    warm-up, each ended by a synchronise."""
+    import torch
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def fairshare_rows(calls, counts: dict) -> list[dict]:
+    """The ``kernels`` rows of ``fairshare_transport`` and
+    ``fairshare_maxmin`` at the widest of ``calls`` (the most chunk
+    ends; for max-min, that call's first solve, every flow alive): the
+    kernel's time with its buffers on the card (CUDA events), the
+    wrapper's whole call with its two copies, the torch loop on the card
+    (the wrapper's ``impl="torch"``, the plain version) and the numpy
+    plain version on the host (host clock).  The bound counts the bytes
+    the function needs, not the wrapper's packing: each input once and
+    each output once, links as f64, flow endpoints and chunk counts as
+    int32 (the bytes a flow moves and its first chunk's offset follow
+    from them), the finish instants and chunk ends as f64; against the
+    f64 operations the run needs at least (4 a chunk end, 3 a fill
+    pass)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import fairshare as kfs
+    from repro_torch.net import fairshare as fs
+    args, kw = max(calls, key=lambda c: (int(c[0][2].sum()), len(c[0][0])))
+    qf, cb = kw["quantum_frac"], float(args[3])
+    s, d, c, nb, u, w, q = fs._flows(*args, qf)
+    dev = torch.device("cuda")
+    f, m = len(s), int(c.sum())
+    want = fs.transport_plain(*args, quantum_frac=qf)
+    err = _fairshare_gap(fs.transport(*args, **kw), want,
+                         "fairshare_transport row")
+    cap = kfs.watchdog_segments(f)
+    a = kfs.transport_args(s, d, c, nb, cb, u, w, q, dev)
+    kfs.launch_transport(a, 16, cap)
+    out = a["out"].cpu().numpy()
+    segments, passes = int(out[f + m]), int(out[f + m + 2])
+    check(segments == want.n_solves, "fairshare_transport row: segments")
+    ms = time_ms(lambda: kfs.launch_transport(a, 16, cap))
+    call_ms = host_ms(lambda: fs.transport(*args, **kw))
+    plain = host_ms(lambda: kfs.fairshare_transport(
+        s, d, c, nb, cb, u, w, q, device=dev, impl="torch"))
+    numpy_ms = host_ms(lambda: fs.transport_plain(*args, quantum_frac=qf))
+    n = len(u)
+    # up/down; src, dst, counts; chunk_bytes, quantum; finish, chunk ends
+    nbytes = 8 * 2 * n + 4 * 3 * f + 16 + 8 * (f + m)
+    bound = bound_ms(nbytes, 4 * m + 3 * passes, F64_OPS_PER_S)
+    rows = [_row("fairshare_transport", "csrc/fairshare.cu",
+                 "src/repro/net/fairshare.py:389", counts, err, ms, plain,
+                 bound, None)]
+    log(f"fairshare_transport at Gemma-7B's widest call (n {len(u)}, {f} "
+        f"flows, {m} chunk ends, {segments} segments, {passes} fill "
+        f"passes): kernel {ms:.4f} ms ({1e3 * ms / segments:.2f} us a "
+        f"segment, {1e3 * ms / max(passes, 1):.2f} us a pass); the "
+        f"wrapper's call with its copies {call_ms:.4f} ms; the torch "
+        f"loop on the card {plain:.3f} ms; numpy on the host "
+        f"{numpy_ms:.3f} ms; bound {bound[0]:.5f} ms ({bound[1]}, "
+        f"{nbytes} bytes; {100 * bound[0] / ms:.2f}%); gap {err:.3e}; "
+        f"{counts.get('fairshare_transport', 0)} launches on the path")
+    want_r = fs.maxmin_rates_plain(s, d, u, w, 16)
+    gap = np.abs(fs.maxmin_rates(s, d, u, w, 16, device=dev) - want_r)
+    check(bool((gap <= EVENT_TOL + EVENT_TOL * np.abs(want_r)).all()),
+          f"fairshare_maxmin row: rates beyond {EVENT_TOL}")
+    err = float(gap.max(initial=0.0))
+    a = kfs.maxmin_args(s, d, u, w, dev)
+    kfs.launch_maxmin(a, 16)
+    passes = int(a["out"][f].item())
+    ms = time_ms(lambda: kfs.launch_maxmin(a, 16))
+    call_ms = host_ms(lambda: fs.maxmin_rates(s, d, u, w, 16, device=dev))
+    plain = host_ms(lambda: kfs.fairshare_maxmin(s, d, u, w, 16, device=dev,
+                                                 impl="torch"))
+    numpy_ms = host_ms(lambda: fs.maxmin_rates_plain(s, d, u, w, 16))
+    nbytes = 8 * 2 * n + 4 * 2 * f + 8 * f     # up/down; src, dst; rates
+    bound = bound_ms(nbytes, 3 * passes, F64_OPS_PER_S)
+    rows.append(_row("fairshare_maxmin", "csrc/fairshare.cu",
+                     "src/repro/net/fairshare.py:191", counts, err, ms,
+                     plain, bound, None))
+    log(f"fairshare_maxmin at that call's first solve ({f} flows, "
+        f"{passes} fill passes): kernel {ms:.4f} ms; the wrapper's call "
+        f"with its copies {call_ms:.4f} ms; the torch loop on the card "
+        f"{plain:.3f} ms; numpy on the host {numpy_ms:.3f} ms; bound "
+        f"{bound[0]:.5f} ms ({bound[1]}, {nbytes} bytes; "
+        f"{100 * bound[0] / ms:.2f}%); gap {err:.3e}; "
+        f"{counts.get('fairshare_maxmin', 0)} launches on the path")
+    return rows
 
 
 def check_time_domain_efficiency(device=None) -> None:
@@ -3435,15 +3612,19 @@ def check_sessions(device=None) -> None:
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def run_event_paths(device=None) -> dict:
+def run_event_paths(device=None) -> tuple[dict, list[dict]]:
     """The event engine's phase: fair-share on the card against its
     plain version, slot/event parity, the warm-up share rounds
     (``EVENT_WARM_NS``), Fig. 8's pairs (``FIG8_MODELS``) with the
     FLTorrent round's transport calls replayed on the host, the
     time-domain efficiency, the recorded session and the churn row.
-    ``device`` None is the card; ``"cpu"`` rehearses on the CPU.
-    Returns the times for the summary line."""
+    ``device`` None is the card; ``"cpu"`` rehearses on the CPU.  On the
+    card, the rounds' fair-share calls (``FAIRSHARE_TALLY``, the launch
+    counters set to 0 before each round and read after it) must be one
+    kernel launch each.  Returns the times for the summary line and the
+    ``kernels`` rows of the two fair-share kernels (none on the CPU)."""
     t_phase = time.perf_counter()
+    FAIRSHARE_TALLY.clear()
     out = {"rounds": {}}
     _, t = run_warm_share(EVENT_WARM_NS[0], device, FAIRSHARE_RECORDED)
     check(len(t["recorded"]) == FAIRSHARE_RECORDED,
@@ -3455,6 +3636,7 @@ def run_event_paths(device=None) -> dict:
         _, t = run_warm_share(n, device)
         t.pop("recorded")
         out["rounds"][f"n{n}"] = t
+    replayed = []
     for i, name in enumerate(FIG8_MODELS):
         _, tb, tf = run_fig8(name, device, keep=10**6 if i == 0 else 0)
         calls = tf.pop("recorded")
@@ -3463,11 +3645,24 @@ def run_event_paths(device=None) -> dict:
         out["rounds"][f"{name} FLTorrent"] = tf
         if i == 0:
             out["replay"] = replay_fig8_calls(calls, device)
+            replayed = calls
     check_time_domain_efficiency(device)
     check_sessions(device)
+    tally = dict(FAIRSHARE_TALLY)
+    out["fairshare_tally"] = tally
+    log(f"fair-share calls and kernel launches of the rounds: {tally}")
+    rows = []
+    if device is None:
+        for kernel, fn in (("fairshare_transport", "transport"),
+                           ("fairshare_maxmin", "maxmin_rates")):
+            calls_n = tally.get(f"{fn} calls", 0)
+            check(tally.get(kernel, 0) == calls_n > 0,
+                  f"{kernel}: {tally.get(kernel, 0)} launches for "
+                  f"{calls_n} {fn} calls of the rounds")
+        rows = fairshare_rows(replayed, tally)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"event phase: {out['phase_s']:.1f} s")
-    return out
+    return out, rows
 
 
 # ----------------------------------------------------------------------
@@ -4662,7 +4857,8 @@ def main() -> int:
         rows += swarm_rows
         slot, slot_rows = run_slot_engine_paths()
         rows += slot_rows
-        event = run_event_paths()
+        event, event_rows = run_event_paths()
+        rows += event_rows
         fl = run_fl_paths()
         examples = run_examples()
         ring = run_ring_local()

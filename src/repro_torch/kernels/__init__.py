@@ -15,11 +15,15 @@ plain versions):
 * ``slots``     — the GPU slot engine's bitplane kernels (stage-1
                   planes, overlap rank counts, ranked extraction); no
                   TPU kernel's counterpart (``core/jit_engine.py``).
+* ``fairshare`` — the event engine's max-min solve and transport
+                  segment loop, one launch a call; no TPU kernel's
+                  counterpart (``net/fairshare.py``).
 
 ``LAUNCHES`` counts the launches of each kernel (see ``_build.py``).
 """
-from . import attention, fedavg, mlstm, ops, quantize, ref, rglru, slots
+from . import (attention, fairshare, fedavg, mlstm, ops, quantize, ref,
+               rglru, slots)
 from ._build import LAUNCHES, reset_launches
 
-__all__ = ["attention", "fedavg", "mlstm", "ops", "quantize", "ref",
-           "rglru", "slots", "LAUNCHES", "reset_launches"]
+__all__ = ["attention", "fairshare", "fedavg", "mlstm", "ops", "quantize",
+           "ref", "rglru", "slots", "LAUNCHES", "reset_launches"]

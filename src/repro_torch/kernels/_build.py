@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("bindings.cpp", "fedavg.cu", "quantize.cu", "attention.cu",
-           "rglru.cu", "mlstm.cu", "slots.cu")
+           "rglru.cu", "mlstm.cu", "slots.cu", "fairshare.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -2,7 +2,7 @@
 //
 // The only source that includes torch/extension.h.  It is called only
 // by the wrappers in fedavg.py, quantize.py, attention.py, rglru.py,
-// mlstm.py and slots.py,
+// mlstm.py, slots.py and fairshare.py,
 // which check device, dtype, shape, contiguity and alignment and
 // allocate every output and scratch tensor with torch.empty; the typed
 // data_ptr<T>() calls below still refuse a tensor of another dtype.  Each entry point launches on
@@ -364,6 +364,75 @@ int64_t slot_rounds_grid(const at::Tensor& like, int64_t n) {
   return repro_torch::slot_rounds_grid(n);
 }
 
+// The packed buffers of kernels/fairshare.py, f64: buf holds cap (2n),
+// src and dst (f), and for transport counts, chunk_off, nbytes (f) and
+// (chunk_bytes, quantum); out holds rate (f) and the passes for maxmin,
+// finish (f), cend (m) and (segments, status, passes) for transport.
+// flags (f,) uint8 and scratch (3f,) f64 are scratch.
+void fairshare_maxmin(const at::Tensor& buf, const at::Tensor& out,
+                      const at::Tensor& flags, int64_t n,
+                      int64_t max_passes) {
+  const int64_t f = flags.numel();
+  TORCH_CHECK(buf.numel() == 2 * n + 2 * f && out.numel() == f + 1,
+              "fairshare_maxmin: want buf (2n + 2f,) and out (f + 1,)");
+  const c10::cuda::CUDAGuard guard(buf.device());
+  repro_torch::FairshareIo io{};
+  const double* b = buf.data_ptr<double>();
+  io.cap = b;
+  io.src = b + 2 * n;
+  io.dst = io.src + f;
+  io.rate = out.data_ptr<double>();
+  io.tail = io.rate + f;
+  io.flags = flags.data_ptr<uint8_t>();
+  io.n = n;
+  io.f = f;
+  io.max_passes = static_cast<int>(max_passes);
+  check_launch(repro_torch::launch_fairshare_maxmin(
+                   io, c10::cuda::getCurrentCUDAStream().stream()),
+               "fairshare_maxmin");
+}
+
+void fairshare_transport(const at::Tensor& buf, const at::Tensor& out,
+                         const at::Tensor& scratch, const at::Tensor& flags,
+                         int64_t n, int64_t max_passes,
+                         int64_t max_segments) {
+  const int64_t f = flags.numel();
+  const int64_t m = out.numel() - f - 3;
+  TORCH_CHECK(buf.numel() == 2 * n + 5 * f + 2 && m >= 0 &&
+                  scratch.numel() == 3 * f,
+              "fairshare_transport: want buf (2n + 5f + 2,), out "
+              "(f + m + 3,) and scratch (3f,)");
+  const c10::cuda::CUDAGuard guard(buf.device());
+  repro_torch::FairshareIo io{};
+  const double* b = buf.data_ptr<double>();
+  io.cap = b;
+  io.src = b + 2 * n;
+  io.dst = io.src + f;
+  io.counts = io.dst + f;
+  io.chunk_off = io.counts + f;
+  io.nbytes = io.chunk_off + f;
+  io.scalars = io.nbytes + f;
+  io.rate = scratch.data_ptr<double>();
+  io.rem = io.rate + f;
+  io.delivered = io.rem + f;
+  io.flags = flags.data_ptr<uint8_t>();
+  io.finish = out.data_ptr<double>();
+  io.cend = io.finish + f;
+  io.tail = io.cend + m;
+  io.n = n;
+  io.f = f;
+  io.m = m;
+  io.max_segments = max_segments;
+  io.max_passes = static_cast<int>(max_passes);
+  check_launch(repro_torch::launch_fairshare_transport(
+                   io, c10::cuda::getCurrentCUDAStream().stream()),
+               "fairshare_transport");
+}
+
+int64_t fairshare_max_peers(int64_t device) {
+  return repro_torch::fairshare_max_peers(static_cast<int>(device));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -424,4 +493,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "mode)");
   m.def("slot_rounds_grid", &slot_rounds_grid,
         "CTAs of a slot_rounds launch on `like`'s device (like, n)");
+  m.def("fairshare_maxmin", &fairshare_maxmin,
+        "Max-min fair rates, every level in one launch (buf, out, flags, "
+        "n, max_passes)");
+  m.def("fairshare_transport", &fairshare_transport,
+        "The fair-share segment loop in one launch (buf, out, scratch, "
+        "flags, n, max_passes, max_segments)");
+  m.def("fairshare_max_peers", &fairshare_max_peers,
+        "Largest n whose 2n links fit a fair-share CTA's shared memory on "
+        "a device (device index)");
 }

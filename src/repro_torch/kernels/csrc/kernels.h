@@ -223,4 +223,45 @@ int slot_rounds_grid(int64_t n);
 cudaError_t launch_slot_rounds(const SlotRoundsIo& io, int32_t* scratch,
                                cudaStream_t stream);
 
+// The event engine's fair-share solvers (fairshare.cu), one CTA a call.
+// Integer fields arrive as exact doubles in the packed input buffer:
+// cap (2n,) the uplinks then the downlinks; src, dst (f,) peer ids.
+//   launch_fairshare_maxmin: rate (f,) the max-min rates after at most
+//     max_passes bottleneck levels and the tail fill; tail[0] the passes.
+//     flags (f,) is scratch.
+//   launch_fairshare_transport: also counts, chunk_off, nbytes (f,) and
+//     scalars (chunk_bytes, quantum); writes finish (f,), cend (m,), the
+//     end of chunk rank k of flow i at chunk_off[i] + k - 1 (inf where
+//     never crossed), and tail = (segments, status, passes): status 1
+//     when flows were still alive after max_segments segments.  rate,
+//     rem, delivered (f,) and flags (f,) are scratch.
+// Both return cudaErrorInvalidValue when the 2n links' shared memory,
+// fairshare_shared_bytes(n), exceeds the device's opt-in limit;
+// fairshare_max_peers(device) is the largest n that fits there (-1 on
+// error).
+struct FairshareIo {
+  const double* cap;
+  const double* src;
+  const double* dst;
+  const double* counts;
+  const double* chunk_off;
+  const double* nbytes;
+  const double* scalars;
+  double* rate;
+  double* rem;
+  double* delivered;
+  uint8_t* flags;
+  double* finish;
+  double* cend;
+  double* tail;
+  int64_t n, f, m, max_segments;
+  int max_passes;
+};
+int64_t fairshare_shared_bytes(int64_t n);
+int64_t fairshare_max_peers(int device);
+cudaError_t launch_fairshare_maxmin(const FairshareIo& io,
+                                    cudaStream_t stream);
+cudaError_t launch_fairshare_transport(const FairshareIo& io,
+                                       cudaStream_t stream);
+
 }  // namespace repro_torch

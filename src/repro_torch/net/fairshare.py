@@ -10,25 +10,31 @@ the rest keep ramping.  The fixed point is the classic max-min fair
 allocation (no flow's rate can grow without shrinking a smaller one).
 
 Port of the JAX package's ``net/fairshare.py``.  Both solvers take and
-return numpy and run in between in torch float64 on
-``resolve_device(device)`` (the GPU unless the caller names the CPU):
-:func:`maxmin_rates` is a loop of at most ``max_passes`` bottleneck
-levels over freeze masks (the same stall guard and truncated feasible
-tail as the host fill), and :func:`transport` carries the whole segment
-loop — water-fill solve, flow-death masking, quantum-batched finish
-events and per-chunk crossing emission over the chunk grid in (flow,
-rank) order — as device tensors, with one host read of the alive mask
-per segment and one per fill level.  Each product and difference is its
-own op (no fused multiply-add) and the per-link counts are sums of
-1.0s, exact in any order, so the arithmetic is the host loops' IEEE
-operation order: rates, finish and chunk instants are bit-equal to
-theirs (the JAX kernels form a finish instant as ``t + ttf``, one ulp
-away at most; the host loop, and so this one, as ``t + dt - dt + ttf``).
+return numpy and run in between in float64 on ``resolve_device(device)``
+(the GPU unless the caller names the CPU).  On a CUDA device each call
+is one launch of a hand-written kernel (``repro_torch.kernels.fairshare``,
+``csrc/fairshare.cu``), the counterpart of the JAX package's compiled
+programs: :func:`maxmin_rates` runs ``fairshare_maxmin``, every
+bottleneck level of ``_maxmin_compiled``'s loop, and :func:`transport`
+runs ``fairshare_transport``, the whole segment loop of
+``_transport_compiled`` (water-fill solve, flow-death masking,
+quantum-batched finish events and per-chunk crossing emission), each
+with one packed copy in and one out.
+
+On the CPU the wrappers run their plain PyTorch version, the torch
+loop kept beside the kernels: the numpy host loops on tensors, with one
+host read of the alive mask per segment and one per fill level.  Both
+routes round each product, quotient, sum and difference on its own (no
+fused multiply-add), and the per-link counts are sums of 1.0s, exact in
+any order, so rates, finish and chunk instants are bit-equal to the
+host loops' (the JAX kernels form a finish instant as ``t + ttf``, one
+ulp away at most; the host loop, and so these, as ``t + dt - dt +
+ttf``).
 
 The numpy host loops (:func:`maxmin_rates_plain`,
-:func:`transport_plain`) are kept verbatim as the plain versions the
-tests and ``chip_smoke.py`` hold the device solvers against; nothing on
-the simulator's path calls them.
+:func:`transport_plain`) are kept verbatim as the oracle the tests and
+``chip_smoke.py`` hold both routes against; nothing on the simulator's
+path calls them.
 
 Chunk-level completion instants come from the piecewise-linear
 delivered-bytes curve of each flow: chunks are pipelined back-to-back
@@ -40,12 +46,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from .. import obs, resolve_device
+from ..kernels import fairshare as kfs
 
-_EPS = 1e-9
-_F64 = torch.float64
+_EPS = kfs.EPS
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +79,8 @@ def maxmin_rates(src: np.ndarray, dst: np.ndarray,
     never oversubscribes a link and coincides with the exact fixpoint
     whenever one pass would have finished anyway.  Small stages and the
     homogeneous limit are always exact.  Solved in float64 on
-    ``device``.
+    ``device``: one ``fairshare_maxmin`` launch on a CUDA device, the
+    torch loop on the CPU.
     """
     if len(src) == 0:
         return np.zeros(0, np.float64)
@@ -82,63 +88,8 @@ def maxmin_rates(src: np.ndarray, dst: np.ndarray,
     rec = obs.get()
     if rec.enabled:
         rec.counter("fairshare.maxmin_calls")
-    dev = resolve_device(device)
-    link, cap, slack, ok = _device_links(s, d, u, w, dev)
-    r = _maxmin_fill(link, cap, slack, ok, int(max_passes))
-    return r.cpu().numpy()
-
-
-def _device_links(src, dst, up, down, dev):
-    """The 2n access links on ``dev``: uplinks, then downlinks.  Flow
-    ``f`` crosses links ``link[f] = src[f]`` and ``link[F + f] = n +
-    dst[f]``; returns ``link``, the capacities, their saturation
-    slack (relative, so links of any magnitude compare fairly) and
-    which flows have capacity on both their links."""
-    n, f = len(up), len(src)
-    link = torch.from_numpy(np.concatenate([src, dst + n])).to(dev)
-    cap = torch.from_numpy(np.concatenate([up, down])).to(dev)
-    slack = _EPS * torch.clamp(cap, min=1.0)
-    ok = (cap > _EPS)[link].view(2, f).all(0)
-    return link, cap, slack, ok
-
-
-def _maxmin_fill(link, cap, slack, unfrozen, max_passes: int):
-    """Progressive filling on device tensors (the JAX kernel's
-    ``_maxmin_fill``) over the links of :func:`_device_links`: one pass
-    per bottleneck level while any flow is unfrozen, freeze masks in
-    place of boolean indexing, the same stall guard and truncated
-    feasible tail.  Uplinks and downlinks sit in one vector, so a pass
-    is half the launches of one per side; every value is the host
-    fill's (the min over both sides is the min of the two mins).  Also
-    run per segment by :func:`_transport_device`."""
-    f = unfrozen.shape[0]
-    inf = float("inf")
-
-    def counts(unfrozen):
-        # Sums of 1.0s: exact whatever order the device adds them in.
-        wt = unfrozen.to(_F64).repeat(2)
-        return torch.zeros_like(cap).index_add_(0, link, wt)
-
-    rates = torch.zeros(f, dtype=_F64, device=cap.device)
-    fill = torch.zeros((), dtype=_F64, device=cap.device)
-    for _ in range(max_passes):
-        if not bool(unfrozen.any()):
-            break
-        cnt = counts(unfrozen)
-        used = cnt > 0
-        t = torch.where(used, cap / cnt, inf).min()
-        fill = fill + t
-        cap = cap - t * cnt
-        sat = used & (cap <= slack)
-        freeze = unfrozen & sat[link].view(2, f).any(0)
-        # Numerical stall (no link saturated): freeze everything.
-        freeze = torch.where(freeze.any(), freeze, unfrozen)
-        rates = torch.where(freeze, fill, rates)
-        unfrozen = unfrozen ^ freeze        # freeze is within unfrozen
-    # Truncated tail: one feasible min-share fill for the rest.
-    cnt = counts(unfrozen)
-    share = torch.where(cnt > 0, cap / cnt, inf)[link].view(2, f).amin(0)
-    return torch.where(unfrozen, fill + torch.clamp(share, min=0.0), rates)
+    return kfs.fairshare_maxmin(s, d, u, w, int(max_passes),
+                                device=resolve_device(device))
 
 
 def maxmin_rates_plain(src: np.ndarray, dst: np.ndarray,
@@ -291,14 +242,24 @@ def transport(src: np.ndarray, dst: np.ndarray, counts: np.ndarray,
     under its current rate; only the redistribution of its freed
     capacity waits for the segment boundary.  ``quantum_frac=0`` gives
     the exact per-event progressive-filling process.  The segment loop
-    runs in float64 on ``device``.
+    runs in float64 on ``device``: one ``fairshare_transport`` launch on
+    a CUDA device, the torch loop on the CPU.
     """
     if len(src) == 0:
         return _no_flows()
     s, d, c, nbytes, u, w, quantum = _flows(
         src, dst, counts, chunk_bytes, up, down, quantum_frac)
-    tm = _transport_device(s, d, c, nbytes, float(chunk_bytes), u, w,
-                           quantum, resolve_device(device))
+    finish, cend, n_solves = kfs.fairshare_transport(
+        s, d, c, nbytes, float(chunk_bytes), u, w, quantum,
+        device=resolve_device(device))
+    emitted = np.isfinite(cend)
+    fin = finish[np.isfinite(finish)]
+    tm = FlowTimings(finish=finish,
+                     chunk_flow=np.repeat(
+                         np.arange(len(s), dtype=np.int64), c)[emitted],
+                     chunk_end=cend[emitted],
+                     makespan=float(fin.max(initial=0.0)),
+                     n_solves=n_solves)
     rec = obs.get()
     if rec.enabled:
         # Every segment's fill is one max-min solve, counted as the host
@@ -307,82 +268,6 @@ def transport(src: np.ndarray, dst: np.ndarray, counts: np.ndarray,
         rec.counter("fairshare.transport_calls")
         rec.counter("fairshare.solves", tm.n_solves)
     return tm
-
-
-def _transport_device(src, dst, counts, nbytes, chunk_bytes, up, down,
-                      quantum, dev, max_passes: int = 16):
-    """The whole segment loop on device tensors (the JAX kernel's
-    ``_transport_compiled``).
-
-    The carry is the wall clock ``t``, per-flow residual bytes,
-    delivered curve, finish instants, alive mask, the per-chunk
-    completion grid ``cend`` in (flow, rank) order — precisely the host
-    path's final ``lexsort((chunk_end, chunk_flow))`` order, because
-    ends are strictly increasing with rank inside a flow — and the solve
-    count.  A chunk row records its completion instant in the segment
-    its 1-based rank is crossed by the flow's delivered-bytes curve;
-    rows never crossed (dead flows) stay ``inf`` and are dropped at the
-    end, reproducing the host path's emit-on-cross behaviour.
-    """
-    f = len(src)
-    total = int(counts.sum())
-    c_flow = np.repeat(np.arange(f, dtype=np.int64), counts)
-    c_rank = (np.arange(total, dtype=np.int64)
-              - np.repeat(np.cumsum(counts) - counts, counts) + 1)
-
-    def put(a):
-        return torch.from_numpy(a).to(dev)
-
-    link, cap, slack, link_ok = _device_links(src, dst, up, down, dev)
-    counts_f = put(counts.astype(np.float64))    # k1 clamp
-    cf, cr = put(c_flow), put(c_rank)
-    cr_f = cr.to(_F64)
-    # A device tensor, not a Python float: CUDA divides a tensor by a
-    # host scalar as a multiply by its reciprocal, a different rounding.
-    cb = torch.tensor(chunk_bytes, dtype=_F64, device=dev)
-    q = torch.tensor(quantum, dtype=_F64, device=dev)
-    inf = float("inf")
-    eps_cb = _EPS * cb
-
-    rem = put(nbytes)
-    alive = rem > 0
-    t = torch.zeros((), dtype=_F64, device=dev)
-    delivered = torch.zeros(f, dtype=_F64, device=dev)
-    finish = torch.where(alive, inf, 0.0)
-    cend = torch.full((total,), float("inf"), dtype=_F64, device=dev)
-    n_solves = 0
-    while bool(alive.any()):
-        r = _maxmin_fill(link, cap, slack, alive & link_ok, max_passes)
-        n_solves += 1
-        live = alive & (r > _EPS)           # dead: no capacity, ever
-        ttf = torch.where(live, rem / torch.where(live, r, 1.0), inf)
-        tmin = ttf.min()
-        dt = torch.where(torch.isfinite(tmin), torch.maximum(tmin, q), 0.0)
-        adv = torch.where(live, torch.minimum(r * dt, rem), 0.0)
-        old = delivered
-        new = old + adv
-        k0 = torch.floor(old / cb + _EPS).long()
-        k1 = torch.minimum(torch.floor(new / cb + _EPS), counts_f).long()
-        crossed = (cr > k0[cf]) & (cr <= k1[cf])
-        endv = t + (cr_f * cb - old[cf]) / torch.where(crossed, r[cf], 1.0)
-        cend = torch.where(crossed, endv, cend)
-        rem = rem - adv
-        done = live & (rem <= eps_cb)
-        t_next = t + dt
-        # Exact finish instants under the segment's constant rates,
-        # formed as the host loop forms them (after the clock advanced).
-        finish = torch.where(done, t_next - dt + ttf, finish)
-        t = t_next
-        delivered = new
-        alive = live & ~done
-    finish = finish.cpu().numpy()
-    cend = cend.cpu().numpy()
-    emitted = np.isfinite(cend)
-    fin = finish[np.isfinite(finish)]
-    return FlowTimings(finish=finish, chunk_flow=c_flow[emitted],
-                       chunk_end=cend[emitted],
-                       makespan=float(fin.max(initial=0.0)),
-                       n_solves=n_solves)
 
 
 def transport_plain(src: np.ndarray, dst: np.ndarray, counts: np.ndarray,

@@ -412,14 +412,17 @@ def test_event_engine_refuses_the_cpu_without_a_device(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
     from repro_torch.core import simulate_round
+    from repro_torch.kernels import fairshare as kernels
     from repro_torch.net import fairshare
 
     def never(*a, **k):
         raise AssertionError("a fair-share solve ran")
 
-    for name in ("_maxmin_fill", "_transport_device", "maxmin_rates_plain",
-                 "transport_plain"):
-        monkeypatch.setattr(fairshare, name, never)
+    for module, name in ((kernels, "_maxmin_fill"),
+                         (kernels, "_transport_device"),
+                         (fairshare, "maxmin_rates_plain"),
+                         (fairshare, "transport_plain")):
+        monkeypatch.setattr(module, name, never)
     cfg = TConfig(n=12, chunks_per_update=8, min_degree=4, seed=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         simulate_round(cfg, time_engine="event")
