@@ -7,7 +7,11 @@ Run from the root of a checkout.  It drives the port (``src/repro_torch``)
 and imports nothing of the JAX package:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the torch
-   and CUDA versions;
+   and CUDA versions; runs the port's static checker in this process
+   (``run_analysis``: ``repro_torch.analysis`` over ``src/repro_torch``
+   and ``examples/*_torch.py`` under ``analysis_baseline_torch.json``,
+   as ``python -m repro_torch.analysis`` does), failing on any new
+   finding or stale baseline entry; it launches no kernel;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``build/torch_kernels/`` and prints how long that took; beside that
    build it compiles ``csrc/attention.cu``, ``csrc/mlstm.cu``,
@@ -304,7 +308,9 @@ and imports nothing of the JAX package:
    ``{"fl_paths": {...}}`` line with the FL phase's rows and times, one
    ``{"examples": {...}}`` line with each example's seconds and launches,
    ``{"ring_local": ...}``, ``{"moe_ep_local": ...}``,
-   ``{"ring_nccl": ...}`` and ``{"dryrun": ...}`` lines, one
+   ``{"ring_nccl": ...}``, ``{"dryrun": ...}`` and ``{"analysis": ...}``
+   (files, rules, new and baselined findings, the scorecard's ready rows
+   of its total, seconds) lines, one
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
    {...}}``.
 
@@ -4825,6 +4831,51 @@ def run_dryrun_paths(device: str = "cuda", reduced: bool = False,
         "seconds": secs}
 
 
+# ----------------------------------------------------------------------
+# the static checker: repro_torch.analysis where the card is
+# ----------------------------------------------------------------------
+
+def run_analysis() -> dict:
+    """The port's analyzer in this process over ``src/repro_torch`` and
+    ``examples/*_torch.py`` under the port's baseline
+    (``analysis_baseline_torch.json``), as ``python -m
+    repro_torch.analysis`` runs it from the repo root: every rule
+    family, then the baseline split and the host-sync scorecard, one
+    row per ``JIT_TARGETS`` name.  Fails on any new finding or stale
+    baseline entry; launches no kernel.  Returns the files, rules, new
+    and baselined findings, the scorecard's ready rows of its total and
+    the seconds."""
+    from repro_torch import analysis as lint
+
+    t0 = time.perf_counter()
+    ctx = lint.AnalysisContext(ROOT)
+    ctx.add_paths([ROOT / "src" / "repro_torch",
+                   *sorted(EXAMPLES_DIR.glob("*_torch.py"))])
+    check(not ctx.errors, f"analysis: {ctx.errors}")
+    found = lint.collect_findings(ctx)
+    baseline = lint.Baseline.load(ROOT / lint.DEFAULT_BASELINE)
+    new, old = lint.split_by_baseline(found, baseline)
+    stale = baseline.unused(found)
+    rows = lint.scorecard(ctx, found)
+    secs = time.perf_counter() - t0
+    for f in new:
+        log(f.render())
+    check(not new, f"analysis: {len(new)} new finding(s)")
+    check(not stale, f"analysis: stale baseline entries {stale}")
+    targets = sum(len(names) for names in lint.JIT_TARGETS.values())
+    check(len(rows) == targets,
+          f"analysis: {len(rows)} scorecard rows for {targets} targets")
+    lint.cli.print_scorecard(rows, sys.stdout)
+    out = {"files": len(ctx.modules), "rules": len(lint.rule_ids()),
+           "new": len(new), "baselined": len(old),
+           "ready": sum(1 for *_, ready in rows if ready),
+           "rows": len(rows), "seconds": secs}
+    log(f"analysis: {out['files']} files, {out['rules']} rules, "
+        f"{out['new']} new, {out['baselined']} baselined, scorecard "
+        f"{out['ready']} of {out['rows']} ready, {secs:.2f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4834,6 +4885,7 @@ def main() -> int:
         log(card)
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"python {sys.version.split()[0]}")
+        analysis = run_analysis()
         log(f"kernel build: {build():.1f} s")
         check_small()
         check_small_serving()
@@ -4880,6 +4932,7 @@ def main() -> int:
     log(json.dumps({"moe_ep_local": moe_ep, "card": card}))
     log(json.dumps({"ring_nccl": nccl, "card": card}))
     log(json.dumps({"dryrun": dry, "card": card}))
+    log(json.dumps({"analysis": analysis, "card": card}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,15 +11,17 @@ falling back to the CPU (``resolve_device``).
 """
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: ``cuda`` unless told otherwise.
 
     Raises when CUDA is asked for (explicitly or by default) and no GPU
     is present; the CPU is used only when the caller names it.
     """
+    # torch is imported here, not at the top, so that the stdlib-only
+    # ``repro_torch.analysis`` imports without it.
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -7,12 +7,15 @@ obs and visibility rules.  Here the reference analyzer runs with
 ``assume_library=True`` over the port's ``core``, ``net`` and ``fl``
 (the GPU slot engine ``core/jit_engine.py`` among them) and the result
 is pinned: no rng finding, no obs finding, and visibility findings at
-exactly the audited engine doors.
+exactly the audited engine doors.  The port's own analyzer,
+``repro_torch.analysis``, picks those layers by the port's paths, so it
+runs without ``assume_library`` and must find the same.
 """
 from pathlib import Path
 
 import pytest
 
+import repro_torch.analysis as port
 from repro.analysis import AnalysisContext, collect_findings, get_rules
 
 REPO = Path(__file__).resolve().parent.parent
@@ -49,3 +52,23 @@ def test_port_visibility_findings_are_the_audited_doors(findings):
     assert vis == DOORS
     assert all(f.detail == "_engine_state" for f in findings
                if f.rule == "VIS001")
+
+
+@pytest.fixture(scope="module")
+def port_findings():
+    ctx = port.AnalysisContext(REPO)
+    ctx.add_paths([REPO / p for p in PORT_LAYERS])
+    assert not ctx.errors, ctx.errors
+    return port.collect_findings(ctx)
+
+
+def _keys(found):
+    return sorted((f.rule, f.path, f.line, f.scope, f.detail)
+                  for f in found)
+
+
+def test_port_analyzer_finds_the_same_without_assume_library(
+        findings, port_findings):
+    assert _keys(port_findings) == _keys(findings)
+    assert {(f.path, f.scope, f.line) for f in port_findings
+            if f.rule == "VIS001"} == DOORS

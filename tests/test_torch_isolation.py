@@ -97,3 +97,29 @@ def test_entry_points_raise_without_a_gpu():
         main = runpy.run_path(str(path))["main"]
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([])
+
+
+STDLIB_ONLY = ("__future__", "argparse", "ast", "dataclasses", "json",
+               "pathlib", "sys")
+
+
+def test_analysis_is_walked_and_imports_the_stdlib_only():
+    """The static checker's 10 files are among the port's files and
+    import nothing but the standard library (relative imports aside),
+    so ``python -m repro_torch.analysis`` runs with no numpy, torch or
+    jax importable."""
+    files = [f for f in _port_files() if f.parent == PORT / "analysis"]
+    assert len(files) == 10
+    mods = {m.split(".")[0] for f in files for m in _imported_modules(f)}
+    assert mods <= set(STDLIB_ONLY), mods
+    code = ("import sys\n"
+            "for m in ('torch', 'numpy', 'jax', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "from repro_torch.analysis import main\n"
+            "sys.exit(main(['src/repro_torch', 'examples']))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ,
+                                   PYTHONPATH=str(REPO / "src")),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "0 new finding(s), 16 baselined" in proc.stdout
