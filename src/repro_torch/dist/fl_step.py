@@ -41,6 +41,15 @@ a rank's gradient row holds its local shards, which the ring carries
 to the same shard of every other pod, as JAX's ``shard_map`` ring
 carries a device's.  The optimizer state takes the same placements.
 
+Under an enabled ``repro_torch.obs`` recorder the step records regions
+(spans the profiler and the device see): ``fl.round`` around the step,
+with the round's host syncs and allocator retries; ``fl.grad`` (attr
+``pod``) around each pod's gradient row, and inside it ``fl.forward``,
+``fl.backward`` and ``fl.row_write``; ``fl.torrent``; ``fl.adamw``;
+``fl.mass_sync``.  ``fl.row_write`` and ``fl.mass_sync`` are host-timed,
+the rest stream-timed.  Under the default null recorder each site is
+one empty call.
+
 The step updates params and optimizer state in place (see
 ``optim.adamw``); at full width on one device (qwen3-1.7b, P = 2) it
 holds params, fp32 master/m/v, the (P, D) buffer, the int8 codes, the
@@ -51,6 +60,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.dist.torrent import (GroupTransport, _unflatten,
                                       aggregate_blocks, alloc_blocks,
                                       masked_weights, ring_fedavg)
@@ -68,12 +78,15 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 
 def _value_and_grad(loss_fn, leaves, treedef, inp, lab):
+    rec = obs.get()
     req = [l.detach().requires_grad_(True) for l in leaves]
-    loss = loss_fn(unflatten(treedef, req), inp, lab)
+    with rec.region("fl.forward", device=True):
+        loss = loss_fn(unflatten(treedef, req), inp, lab)
     # a leaf the loss never reads (an mLSTM layer's up_r, as in JAX)
     # gets a zero gradient, as jax.grad gives it
-    grads = torch.autograd.grad(loss, req, allow_unused=True,
-                                materialize_grads=True)
+    with rec.region("fl.backward", device=True):
+        grads = torch.autograd.grad(loss, req, allow_unused=True,
+                                    materialize_grads=True)
     # a DTensor gradient may come back Partial (summed over the batch
     # split) or laid out otherwise: bring it to its parameter's layout
     grads = tuple(g.redistribute(l.device_mesh, l.placements)
@@ -87,15 +100,16 @@ def _value_and_grad(loss_fn, leaves, treedef, inp, lab):
 def _write_row(out: torch.Tensor, grads, *, accumulate: bool) -> None:
     """Copy (or add) gradient leaves into a flat f32 row, in leaf order."""
     off = 0
-    for g in grads:
-        g = _local(g)
-        n = g.numel()
-        dst = out[off:off + n]
-        if accumulate:
-            dst.add_(g.reshape(-1))
-        else:
-            dst.copy_(g.reshape(-1))
-        off += n
+    with obs.get().region("fl.row_write"):
+        for g in grads:
+            g = _local(g)
+            n = g.numel()
+            dst = out[off:off + n]
+            if accumulate:
+                dst.add_(g.reshape(-1))
+            else:
+                dst.copy_(g.reshape(-1))
+            off += n
 
 
 def _n_microbatches(b: int, microbatch: int) -> int:
@@ -196,7 +210,8 @@ def _any_mass(wn: torch.Tensor) -> bool:
     the values are unknown and the update is traced, as a round with
     mass runs it."""
     from torch._subclasses.fake_tensor import is_fake
-    return True if is_fake(wn) else bool((wn > 0).any())
+    with obs.get().region("fl.mass_sync"):
+        return True if is_fake(wn) else bool((wn > 0).any())
 
 
 def _data_shard(mesh, inp, lab):
@@ -250,21 +265,23 @@ def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
     def loss_fn(p, x, y):
         return train_loss(cfg, p, x, y, ce_chunk=ce_chunk)
 
-    def grad_row(params, inp, lab, out):
-        """This rank's loss and gradient row for one pod's batch."""
-        inp, lab = _data_shard(mesh, inp, lab)
-        placed = is_dtensor(flatten(params)[0][0])
-        loss, _ = _microbatched_value_and_grad(
-            loss_fn, params, inp, lab, microbatch, out=out,
-            place=lambda x, y: _placed_batch(params, x, y))
-        loss = loss.float().reshape(1)
-        if not placed:
-            # placed gradients are reduced by DTensor's backward
-            _data_mean(mesh, out, loss)
-        return loss[0]
+    def grad_row(params, inp, lab, out, pod: int):
+        """This rank's loss and gradient row for pod ``pod``'s batch."""
+        with obs.get().region("fl.grad", device=True, pod=pod):
+            inp, lab = _data_shard(mesh, inp, lab)
+            placed = is_dtensor(flatten(params)[0][0])
+            loss, _ = _microbatched_value_and_grad(
+                loss_fn, params, inp, lab, microbatch, out=out,
+                place=lambda x, y: _placed_batch(params, x, y))
+            loss = loss.float().reshape(1)
+            if not placed:
+                # placed gradients are reduced by DTensor's backward
+                _data_mean(mesh, out, loss)
+            return loss[0]
 
     def step(params, opt, batch, weights, active):
-        with axis_rules(rules, mesh):
+        with (obs.get().region("fl.round", device=True, round=True),
+              axis_rules(rules, mesh)):
             return _step(params, opt, batch, weights, active)
 
     def _step(params, opt, batch, weights, active):
@@ -280,9 +297,10 @@ def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
                 meta = _row_meta(params, inp.shape[0], microbatch)
                 row = torch.empty(meta[3], dtype=torch.float32,
                                   device=inp.device)
-                loss = grad_row(params, inp, lab, row)
+                loss = grad_row(params, inp, lab, row, 0)
                 agg = _placed_like(_unflatten(row, meta), params)
-            params, opt = adamw_update(agg, opt, params, lr=lr)
+            with obs.get().region("fl.adamw", device=True):
+                params, opt = adamw_update(agg, opt, params, lr=lr)
             return params, opt, {"loss": loss, "lr": lr}
 
         dev = _local(flatten(params)[0][0]).device
@@ -295,9 +313,11 @@ def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
             me = mesh.coords["pod"]
             blocks = alloc_blocks(1, d, torrent_blocks, dev)
             loss_me = grad_row(params, inputs[me], labels[me],
-                               blocks.view(1, -1)[0, :d])
-            flat, = ring_fedavg(GroupTransport.for_mesh(mesh), [blocks[0]],
-                                weights, active, compress=compress)
+                               blocks.view(1, -1)[0, :d], me)
+            with obs.get().region("fl.torrent", device=True):
+                flat, = ring_fedavg(GroupTransport.for_mesh(mesh),
+                                    [blocks[0]], weights, active,
+                                    compress=compress)
             del blocks
             agg = _placed_like(_unflatten(flat, meta), params)
             del flat
@@ -309,11 +329,13 @@ def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
             blocks = alloc_blocks(p, d, torrent_blocks, dev)
             rows = blocks.view(p, -1)
             losses = torch.stack([
-                grad_row(params, inputs[i], labels[i], rows[i, :d])
+                grad_row(params, inputs[i], labels[i], rows[i, :d], i)
                 for i in range(p)])
             del rows
-            agg = _placed_like(aggregate_blocks(blocks, meta, weights, active,
-                                                compress=compress), params)
+            with obs.get().region("fl.torrent", device=True):
+                agg = aggregate_blocks(blocks, meta, weights, active,
+                                       compress=compress)
+            agg = _placed_like(agg, params)
             del blocks
         wn = masked_weights(weights, active)
         # select (don't multiply): a pod masked because it diverged
@@ -324,7 +346,8 @@ def make_fl_train_step(cfg, mesh=None, *, lr_schedule, n_pods: int,
         # still apply weight decay and advance the LR schedule).  Same
         # zero-mass definition as the aggregator's.
         if _any_mass(wn):
-            params, opt = adamw_update(agg, opt, params, lr=lr)
+            with obs.get().region("fl.adamw", device=True):
+                params, opt = adamw_update(agg, opt, params, lr=lr)
         return params, opt, {"loss": loss, "lr": lr}
 
     return step

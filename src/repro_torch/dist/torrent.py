@@ -41,6 +41,11 @@ keys), so they, and with them the quantization scales, match the JAX
 package's.  The kernels dispatch on the device of their tensors: CUDA
 kernels for CUDA tensors, the plain versions for CPU tensors.  Zero
 active mass returns zeros, never NaN.
+
+Under an enabled ``repro_torch.obs`` recorder the int8 codes' kernels,
+the masked FedAvg and the cast back to the leaves are host-timed
+regions: ``torrent.quantize``, ``torrent.dequantize``,
+``torrent.fedavg`` and ``torrent.unflatten``.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ import collections
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.kernels.fedavg import fedavg_reduce
 from repro_torch.kernels.quantize import chunk_dequantize, chunk_quantize
 from repro_torch.kernels.ref import masked_normalized_weights
@@ -101,12 +107,13 @@ def _unflatten(vec: torch.Tensor, meta):
     treedef, shapes, dtypes, d = meta
     vec = vec.reshape(-1)[:d]
     out, off = [], 0
-    for shp, dt in zip(shapes, dtypes):
-        size = 1
-        for s in shp:
-            size *= s
-        out.append(vec[off:off + size].reshape(shp).to(dt))
-        off += size
+    with obs.get().region("torrent.unflatten"):
+        for shp, dt in zip(shapes, dtypes):
+            size = 1
+            for s in shp:
+                size *= s
+            out.append(vec[off:off + size].reshape(shp).to(dt))
+            off += size
     return unflatten(treedef, out)
 
 
@@ -117,15 +124,19 @@ def _aggregate(flat: torch.Tensor, weights, active) -> torch.Tensor:
     was masked because it diverged (NaN update) cannot poison the
     aggregate.  CUDA kernel for a CUDA buffer, plain version on the CPU.
     """
-    return fedavg_reduce(flat, weights, active)
+    with obs.get().region("torrent.fedavg"):
+        return fedavg_reduce(flat, weights, active)
 
 
 def _roundtrip(blocks: torch.Tensor) -> None:
     """Quantize every block to int8 and dequantize it back, in place."""
     p, nb, db = blocks.shape
     rows = blocks.view(p * nb, db)
-    q, s = chunk_quantize(rows)
-    chunk_dequantize(q, s, out=rows)
+    rec = obs.get()
+    with rec.region("torrent.quantize"):
+        q, s = chunk_quantize(rows)
+    with rec.region("torrent.dequantize"):
+        chunk_dequantize(q, s, out=rows)
 
 
 class LocalTransport:
@@ -200,13 +211,15 @@ def ring_gather(transport, rows, *, compress: bool = False) -> list:
     filled last stage and receives straight into the next one.
     """
     p = transport.p
+    rec = obs.get()
     bufs, circ, spare = [], [], []
     for idx, my in zip(transport.ranks, rows):
         my = my.to(torch.float32).contiguous()
         buf = torch.empty((p,) + tuple(my.shape), dtype=torch.float32,
                           device=my.device)
         if compress:
-            q, s = chunk_quantize(my)           # once, at the source
+            with rec.region("torrent.quantize"):
+                q, s = chunk_quantize(my)       # once, at the source
             circ.append((q, s))
             spare.append((torch.empty_like(q), torch.empty_like(s)))
         else:
@@ -216,7 +229,8 @@ def ring_gather(transport, rows, *, compress: bool = False) -> list:
         srcs = [(idx - stage) % p for idx in transport.ranks]
         if compress:
             for buf, src, (q, s) in zip(bufs, srcs, circ):
-                chunk_dequantize(q, s, out=buf[src])
+                with rec.region("torrent.dequantize"):
+                    chunk_dequantize(q, s, out=buf[src])
         if stage == p - 1:
             break
         if compress:

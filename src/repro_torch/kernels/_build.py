@@ -7,6 +7,9 @@ lists ``build/``).  Importing this module compiles nothing, so the
 package imports where there is no ``nvcc``.  A failed build raises;
 nothing falls back to the plain versions.
 
+Under an enabled ``repro_torch.obs`` recorder the build or load is a
+host-timed ``kernels.extension`` region (later calls record nothing).
+
 ``LAUNCHES`` counts, per kernel, the calls in which its wrapper
 launched it on the card; ``chip_smoke.py`` resets it before driving
 the train step and reads it after, to show the step ran the kernels.
@@ -42,13 +45,16 @@ def extension():
     global _ext
     if _ext is None:
         from torch.utils.cpp_extension import load
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        _ext = load(name="repro_torch_kernels",
-                    sources=[str(CSRC / s) for s in SOURCES],
-                    extra_include_paths=[str(CSRC)],
-                    extra_cflags=["-O3"],
-                    extra_cuda_cflags=CUDA_FLAGS,
-                    build_directory=str(BUILD_DIR))
+
+        from repro_torch import obs
+        with obs.get().region("kernels.extension"):
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _ext = load(name="repro_torch_kernels",
+                        sources=[str(CSRC / s) for s in SOURCES],
+                        extra_include_paths=[str(CSRC)],
+                        extra_cflags=["-O3"],
+                        extra_cuda_cflags=CUDA_FLAGS,
+                        build_directory=str(BUILD_DIR))
     return _ext
 
 

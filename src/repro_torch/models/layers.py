@@ -55,6 +55,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.kernels import ops, ref
 from repro_torch.sharding.api import (axis_rules, axis_sizes, constrain,
                                       current_rules, is_dtensor, local_map,
@@ -455,29 +456,33 @@ def _moe_local_block(cfg: ArchConfig, x_loc, router, wg, wu, wd,
     e, k_top = cfg.n_experts, cfg.top_k
     e_loc = wg.shape[0]
     dev = x_loc.device
-    probs = torch.softmax(x_loc.float() @ router, dim=-1)
-    gates, idx = _top_k(probs, k_top)                     # full table
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    # the routing and dispatch: a host-timed region (the checkpointed
+    # recompute records it again, inside the backward)
+    with obs.get().region("moe.route"):
+        probs = torch.softmax(x_loc.float() @ router, dim=-1)
+        gates, idx = _top_k(probs, k_top)                 # full table
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
-    rel = idx - g_id * e_loc                              # (n, k)
-    inb = (rel >= 0) & (rel < e_loc)
-    flat_e = torch.where(inb, rel, e_loc).reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    # each expert's first slot in the sorted order (a bincount's
-    # exclusive cumsum, without the host sync of a CUDA bincount)
-    starts = torch.searchsorted(sorted_e,
-                                torch.arange(e_loc + 1, dtype=flat_e.dtype,
-                                             device=dev))
-    pos_in_e = torch.arange(n * k_top, device=dev) - starts[sorted_e]
-    cap = math.ceil(n * k_top / e * cfg.capacity_factor)
-    cap = max(8, -(-cap // 8) * 8)
-    keep = (pos_in_e < cap) & (sorted_e < e_loc)
-    dest = torch.where(keep, sorted_e * cap + pos_in_e, e_loc * cap)
-    src_token = order // k_top
+        rel = idx - g_id * e_loc                          # (n, k)
+        inb = (rel >= 0) & (rel < e_loc)
+        flat_e = torch.where(inb, rel, e_loc).reshape(-1)
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        # each expert's first slot in the sorted order (a bincount's
+        # exclusive cumsum, without the host sync of a CUDA bincount)
+        starts = torch.searchsorted(
+            sorted_e, torch.arange(e_loc + 1, dtype=flat_e.dtype,
+                                   device=dev))
+        pos_in_e = torch.arange(n * k_top, device=dev) - starts[sorted_e]
+        cap = math.ceil(n * k_top / e * cfg.capacity_factor)
+        cap = max(8, -(-cap // 8) * 8)
+        keep = (pos_in_e < cap) & (sorted_e < e_loc)
+        dest = torch.where(keep, sorted_e * cap + pos_in_e, e_loc * cap)
+        src_token = order // k_top
 
-    buf = torch.zeros((e_loc * cap + 1, d), dtype=x_loc.dtype, device=dev)
-    buf = buf.index_put((dest,), x_loc[src_token])
+        buf = torch.zeros((e_loc * cap + 1, d), dtype=x_loc.dtype,
+                          device=dev)
+        buf = buf.index_put((dest,), x_loc[src_token])
     buf = buf[:-1].reshape(e_loc, cap, d)
     buf = logical_constraint(buf, "expert", None, None)
     g = torch.bmm(buf, wg)

@@ -8,6 +8,8 @@ recorder that defaults to a :class:`NullRecorder` (every hook a no-op,
 recorder only observes: it draws no rng and never feeds back into
 simulated time, so a round's schedule is the same with telemetry on or
 off.  Rows, exports and reports are the JAX package's, field for field.
+The port adds regions (``Recorder.region``): spans that
+``torch.profiler`` and the CUDA stream see, recorded by the FL round.
 """
 from .recorder import (NullRecorder, Recorder, get, install, recording)
 from .export import (read_jsonl, to_jsonl_rows, to_perfetto,

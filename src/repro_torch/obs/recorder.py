@@ -21,12 +21,27 @@ Event model — every record is one flat dict ("row") with a ``kind``:
             counter (sum), gauge (last value), or histogram (all
             observations).
 
+A *region* (:meth:`Recorder.region`, the port's own addition, used by
+the FL round) is a ``span`` row that ``torch.profiler`` and the device
+can see: while open it is a ``record_function`` annotation, so a
+profiler trace shows it on the kernels' clock; with ``device=True`` it
+also records a CUDA event pair on the current stream, and
+:meth:`Recorder.resolve` sets its ``device_ms`` once the caller has
+synchronised.  Its row adds ``id``, ``parent`` (the id of the region
+open around it, on any thread) and ``round`` (the id of the enclosing
+``round=True`` region, whose row also counts ``host_syncs`` and
+``alloc_retries``).  While a region is open, garbage collections are
+``py.gc`` regions.  Spans, events and flows keep the JAX package's
+fields; only region rows carry the new ones.
+
 Simulated instants (``t``, ``t0``, ``t1``, ``t_start``, ``t_end``) are
 shifted by ``time_base`` at record time; wall durations are not.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
+import warnings
 
 import numpy as np
 
@@ -56,6 +71,10 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 
+# What torch's sync debug mode warns (``TORCH_WARN``) at each
+# synchronising CUDA call.
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
 
 class NullRecorder:
     """Disabled telemetry: every hook is a no-op.
@@ -73,6 +92,9 @@ class NullRecorder:
         pass
 
     def span(self, name, **attrs):
+        return _NULL_SPAN
+
+    def region(self, name, *, device=False, round=False, **attrs):
         return _NULL_SPAN
 
     def span_at(self, name, t0, t1, **attrs):
@@ -120,6 +142,116 @@ class _Span:
         return False
 
 
+class _SyncCount:
+    """Synchronising CUDA calls made while open: torch's sync debug mode
+    set to warn, and its warnings counted, not shown (the autograd
+    engine replays those its device threads raise on the thread that
+    called backward); other warnings are shown as before.  The mode and
+    the warning filters are restored on exit."""
+
+    __slots__ = ("n", "_mode", "_catch")
+
+    def __enter__(self):
+        import torch
+        self.n = 0
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.filterwarnings("always", message=SYNC_WARNING)
+        shown = warnings.showwarning
+
+        def count(message, category, filename, lineno, file=None,
+                  line=None):
+            if str(message).startswith(SYNC_WARNING):
+                self.n += 1
+            else:
+                shown(message, category, filename, lineno, file, line)
+
+        warnings.showwarning = count
+        self._mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode(self._mode)
+        self._catch.__exit__(*exc)
+        return False
+
+
+class _Region:
+    """Live region handle (``Recorder.region``): a wall-clocked span
+    that is also a profiler annotation and, with ``device``, a CUDA
+    event pair on the current stream."""
+
+    __slots__ = ("_rec", "name", "attrs", "_device", "_is_round", "id",
+                 "parent", "round", "_outer_round", "_rf", "_ev", "_syncs",
+                 "_retries", "_w0")
+
+    def __init__(self, rec: "Recorder", name: str, device: bool,
+                 is_round: bool, attrs: dict):
+        self._rec = rec
+        self.name = name
+        self.attrs = attrs
+        self._device = device
+        self._is_round = is_round
+
+    def __enter__(self):
+        # torch is imported here, not with the module: the swarm's
+        # paths, which record no region, import nothing more through it
+        import torch
+        rec = self._rec
+        self.id = rec._next_id
+        rec._next_id += 1
+        self.parent = rec._open[-1] if rec._open else None
+        if self._is_round:
+            self._outer_round, rec._round = rec._round, self.id
+        self.round = rec._round
+        rec._open.append(self.id)
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        cuda = ((self._device or self._is_round)
+                and torch.cuda.is_initialized())
+        self._syncs = self._retries = self._ev = None
+        if self._is_round and cuda:
+            self._syncs = _SyncCount().__enter__()
+            self._retries = _alloc_retries(torch)
+        if self._device and cuda:
+            self._ev = torch.cuda.Event(enable_timing=True)
+            self._ev.record()
+        self._w0 = rec.clock()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        rec = self._rec
+        wall = rec.clock() - self._w0
+        row = dict(kind="span", name=self.name, id=self.id,
+                   round=self.round, parent=self.parent,
+                   wall_s=float(wall), **self.attrs)
+        if self._ev is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            rec._timed.append((row, self._ev, end))
+        if self._is_round:
+            row["host_syncs"] = 0
+            if self._syncs is not None:
+                self._syncs.__exit__(*exc)
+                row["host_syncs"] = self._syncs.n
+                row["alloc_retries"] = (_alloc_retries(torch)
+                                        - self._retries)
+            rec._round = self._outer_round
+        self._rf.__exit__(*exc)
+        rec._open.remove(self.id)
+        rec._append(row)
+        return False
+
+
+def _alloc_retries(torch) -> int:
+    """The caching allocator's retries so far on the current device:
+    allocations that failed until every cached block was released."""
+    return int(torch.cuda.memory_stats().get("num_alloc_retries", 0))
+
+
 class Recorder:
     """Enabled telemetry sink.
 
@@ -143,6 +275,16 @@ class Recorder:
         # Ambient attributes merged into every row (e.g. round=r).
         self._ctx: dict = {}
         self._seq = 0
+        # Regions: the next id, the ids open (innermost last; one stack
+        # for every thread, since a round's host side runs one thread at
+        # a time: the caller waits while autograd's device thread runs
+        # the backward), the open round, the garbage collection in
+        # progress, and the device-timed rows awaiting ``resolve``.
+        self._next_id = 0
+        self._open: list[int] = []
+        self._round: int | None = None
+        self._gc: _Region | None = None
+        self._timed: list = []
 
     # -- plumbing -------------------------------------------------------
     def set_ctx(self, **attrs):
@@ -173,6 +315,23 @@ class Recorder:
     def span(self, name: str, **attrs) -> _Span:
         """Wall-clocked span: ``with rec.span("warmup", round=r): ...``"""
         return _Span(self, name, attrs)
+
+    def region(self, name: str, *, device: bool = False,
+               round: bool = False, **attrs) -> _Region:
+        """A span that ``torch.profiler`` sees (and, with ``device``, the
+        stream times): ``with rec.region("fl.forward", device=True):``.
+        ``round=True`` makes it the ``round`` of the regions inside and
+        counts, on a CUDA process, ``host_syncs`` and ``alloc_retries``
+        on its row (``host_syncs`` is 0 where CUDA is not in use)."""
+        return _Region(self, name, device, round, attrs)
+
+    def resolve(self) -> None:
+        """Set ``device_ms`` on the rows of the device-timed regions
+        closed so far.  Call once the device has synchronised: the
+        recorder itself never waits for it."""
+        for row, a, b in self._timed:
+            row["device_ms"] = float(a.elapsed_time(b))
+        self._timed.clear()
 
     def span_at(self, name: str, t0: float, t1: float, **attrs):
         """Post-hoc span over SIMULATED time ``[t0, t1]`` (seconds on
@@ -234,12 +393,32 @@ def get():
     return _active
 
 
+def _gc_region(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: a collection while a region is open is a
+    ``py.gc`` region (host time the device may sit idle through)."""
+    rec = _active
+    if phase == "start":
+        if isinstance(rec, Recorder) and rec._open and rec._gc is None:
+            rec._gc = rec.region("py.gc", generation=info["generation"])
+            rec._gc.__enter__()
+    elif getattr(rec, "_gc", None) is not None:
+        g, rec._gc = rec._gc, None
+        g.__exit__(None, None, None)
+
+
 def install(rec):
     """Install ``rec`` as the active recorder (``None`` restores the
-    null recorder); returns the previously active one."""
+    null recorder); returns the previously active one.  The ``py.gc``
+    hook is in ``gc.callbacks`` only while a Recorder is installed."""
     global _active
     prev = _active
     _active = rec if rec is not None else NullRecorder()
+    hooked = _gc_region in gc.callbacks
+    if isinstance(_active, Recorder):
+        if not hooked:
+            gc.callbacks.append(_gc_region)
+    elif hooked:
+        gc.callbacks.remove(_gc_region)
     return prev
 
 
